@@ -1,0 +1,146 @@
+"""The port's block-CSR SpMM against the JAX package's.
+
+The plain versions run here on the CPU; the JAX side runs its reference
+and its fused Pallas kernel in interpret mode, as the JAX tests do. The
+CUDA kernel runs only on a card: ``test_cuda_kernel_matches_plain`` is
+marked ``cuda`` and skips without one (``chip_smoke.py`` holds the kernel
+against the plain version at the main path's shapes)."""
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from repro.kernels.spmm import csr_to_bcsr as jax_csr_to_bcsr
+from repro.kernels.spmm import spmm_bcsr as jax_spmm_bcsr
+from repro_torch.convert import params_from_jax
+from repro_torch.kernels import build
+from repro_torch.kernels.spmm import (
+    csr_to_bcsr, spmm_bcsr, spmm_bcsr_ref, spmm_bcsr_stream, spmm_bcsr_sym)
+from repro_torch.models.gnn import GNNConfig, init_gnn
+from repro_torch.serve import GNNInferenceEngine
+
+# f32 on both sides; the sums run in another order (einsum/bmm against
+# XLA's dot), and nothing on the CPU uses TF32
+ATOL = RTOL = 1e-4
+
+
+def _case(block, f, n=96, seed=0):
+    a = sp.random(n, n, density=0.08, random_state=seed, format="csr",
+                  dtype=np.float32)
+    a = (a + a.T).tocsr()
+    x = np.random.default_rng(seed).normal(size=(n, f)).astype(np.float32)
+    return a, x
+
+
+@pytest.mark.parametrize("block", [8, 16, 32])
+@pytest.mark.parametrize("f", [40, 64, 128])
+def test_plain_versions_match_jax(block, f):
+    a, x = _case(block, f, seed=block + f)
+    n = a.shape[0]
+    ref = jax_csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=block)
+    bc = csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=block)
+    assert bc.tile_cols.tobytes() == ref.tile_cols.tobytes()
+    assert bc.tile_vals.tobytes() == ref.tile_vals.tobytes()
+    xp = np.zeros((bc.num_cols, f), np.float32)
+    xp[:n] = x
+    want = {impl: np.asarray(jax_spmm_bcsr(ref.tile_cols, ref.tile_vals, xp,
+                                           impl=impl, block_f=128))
+            for impl in ("reference", "fused_interpret")}
+    cols, vals = torch.from_numpy(bc.tile_cols), torch.from_numpy(bc.tile_vals)
+    for fn in (spmm_bcsr_ref, spmm_bcsr_stream):
+        got = fn(cols, vals, torch.from_numpy(xp)).numpy()
+        for w in want.values():
+            np.testing.assert_allclose(got, w, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(want["reference"][:n], a @ x, atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_sym_backward_is_transpose():
+    a, x = _case(16, 16, seed=3)
+    n = a.shape[0]
+    bc = csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=16)
+    g = np.random.default_rng(4).normal(size=x.shape).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = spmm_bcsr_sym(torch.from_numpy(bc.tile_cols),
+                        torch.from_numpy(bc.tile_vals), xt)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), a.T @ g, atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(out.detach().numpy(), a @ x, atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_cpu_tensors_take_plain_path_and_launch_nothing():
+    a, x = _case(16, 40, seed=5)
+    n = a.shape[0]
+    bc = csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=16)
+    build.reset_launches()
+    got = spmm_bcsr(torch.from_numpy(bc.tile_cols),
+                    torch.from_numpy(bc.tile_vals), torch.from_numpy(x))
+    assert build.launches.get("spmm_bcsr", 0) == 0
+    np.testing.assert_allclose(got.numpy(), a @ x, atol=ATOL, rtol=RTOL)
+
+
+def _tiny_bcsr():
+    bc = csr_to_bcsr(np.array([0, 1, 1]), np.array([1]),
+                     np.array([1.0], np.float32), 2, 2, block=2)
+    return (torch.from_numpy(bc.tile_cols), torch.from_numpy(bc.tile_vals),
+            torch.ones((2, 3)))
+
+
+@pytest.mark.parametrize("mutate, exc", [
+    (lambda c, v, x: (c, v, x), ValueError),               # CPU tensors
+    (lambda c, v, x: (c.long(), v, x), TypeError),
+    (lambda c, v, x: (c, v.double(), x), TypeError),
+    (lambda c, v, x: (c, v, x.double()), TypeError),
+    (lambda c, v, x: (c, v, x[:1]), ValueError),           # rows % B
+    (lambda c, v, x: (c, v[..., :1], x), ValueError),      # B != B
+    (lambda c, v, x: (c, torch.zeros(1, 1, 129, 129), torch.zeros(129, 3)),
+     ValueError),                                          # B > 128
+], ids=["cpu", "cols-int64", "vals-f64", "x-f64", "x-rows", "tile-shape",
+        "block-129"])
+def test_cuda_impl_refuses_what_the_kernel_does_not_take(mutate, exc):
+    build.reset_launches()
+    with pytest.raises(exc):
+        spmm_bcsr(*mutate(*_tiny_bcsr()), impl="cuda")
+    assert build.launches.get("spmm_bcsr", 0) == 0
+
+
+@pytest.mark.parametrize("entry", ["spmm_bcsr", "init_gnn", "params",
+                                   "engine"])
+def test_entry_points_refuse_cpu_without_device_argument(entry,
+                                                         monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cols, vals, _x = _tiny_bcsr()
+    cfg = GNNConfig(in_dim=3, hidden=4, out_dim=2, num_layers=2)
+    calls = {
+        "spmm_bcsr": lambda: spmm_bcsr(cols.numpy(), vals.numpy(),
+                                       np.ones((2, 3), np.float32)),
+        "init_gnn": lambda: init_gnn(cfg, torch.Generator()),
+        "params": lambda: params_from_jax({"layers": []}),
+        "engine": lambda: GNNInferenceEngine(None, cfg, {"layers": []}),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 7, 16, 128])
+@pytest.mark.parametrize("f", [40, 256])
+def test_cuda_kernel_matches_plain(block, f):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    a, x = _case(block, f, n=256, seed=block)
+    n = a.shape[0]
+    bc = csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=block)
+    dev = torch.device("cuda")
+    cols = torch.as_tensor(bc.tile_cols, device=dev)
+    vals = torch.as_tensor(bc.tile_vals, device=dev)
+    xp = torch.zeros((bc.num_cols, f), device=dev)
+    xp[:n] = torch.as_tensor(x, device=dev)
+    build.reset_launches()
+    got = spmm_bcsr(cols, vals, xp)
+    torch.cuda.synchronize()
+    assert build.launches["spmm_bcsr"] == 1
+    torch.testing.assert_close(got, spmm_bcsr_ref(cols, vals, xp),
+                               atol=ATOL, rtol=RTOL)
