@@ -13,13 +13,15 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "..", "..", "..", "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: every kernel source of the port
+SOURCES = ("spmm_bcsr.cu", "spmm_bcsr_unfused.cu", "gather_rows.cu")
 
 #: launches per kernel name since the last reset; a wrapper adds one where
 #: it launches its kernel and nowhere else
@@ -57,23 +59,40 @@ def library_path(source: str) -> str:
         BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so"))
 
 
+def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile every ``csrc/<source>`` whose library does not exist yet, one
+    ``nvcc`` per source, all started together; return each library's path.
+    A library is written under a temporary name and published with
+    ``os.replace``, so a concurrent or interrupted build never leaves a
+    truncated file behind. Raises with the compiler's output if any build
+    fails."""
+    paths = {src: library_path(src) for src in sources}
+    running = []
+    for src, out in paths.items():
+        if os.path.exists(out):
+            continue
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        running.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, out, tmp, proc in running:
+        _stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{src}:\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
 def build(source: str) -> str:
     """Compile ``csrc/<source>`` unless its library exists; return its
-    path. The library is written under a temporary name and published with
-    ``os.replace``, so a concurrent or interrupted build never leaves a
-    truncated file behind."""
-    out = library_path(source)
-    if os.path.exists(out):
-        return out
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{source}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    path."""
+    return build_all((source,))[source]
 
 
 def load_library(source: str) -> ctypes.CDLL:

@@ -5,15 +5,24 @@ the padded block-CSR layout once per batch via ``csr_to_bcsr`` (vectorized
 numpy, copied from ``repro.kernels.spmm.ops``), and the GNN forward calls
 ``spmm_bcsr`` / ``spmm_bcsr_sym`` every step.
 
-``spmm_bcsr`` launches the hand-written CUDA kernel (``csrc/spmm_bcsr.cu``)
-for CUDA tensors and runs the plain streaming version for CPU tensors;
-``impl="stream"``/``"reference"`` name the plain versions explicitly.
+``spmm_bcsr`` launches a hand-written CUDA kernel for CUDA tensors and runs
+the plain streaming version for CPU tensors; ``impl="stream"``/
+``"reference"`` name the plain versions explicitly. Two kernels compute the
+same function:
+
+* ``impl="cuda"`` (``csrc/spmm_bcsr.cu``), the counterpart of the
+  reference's ``impl="fused"`` (``spmm_bcsr_fused_pallas``); the default
+  for CUDA tensors and the one the GNN layers run.
+* ``impl="cuda_unfused"`` (``csrc/spmm_bcsr_unfused.cu``), the counterpart
+  of the reference's ``impl="pallas"`` (``spmm_bcsr_pallas``): K stays a
+  grid axis, split into ``S`` ranges whose partial sums a second kernel
+  adds in fixed order.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,8 +33,12 @@ from repro_torch.kernels.spmm.ref import spmm_bcsr_ref, spmm_bcsr_stream
 
 KERNEL = "spmm_bcsr"
 SOURCE = "spmm_bcsr.cu"
-MAX_BLOCK = 128         # largest tile block B the kernel takes
-IMPLS = ("cuda", "stream", "reference")
+KERNEL_UNFUSED = "spmm_bcsr_unfused"
+SOURCE_UNFUSED = "spmm_bcsr_unfused.cu"
+MAX_BLOCK = 128         # largest tile block B the kernels take
+IMPLS = ("cuda", "cuda_unfused", "stream", "reference")
+FEATURE_BLOCK = 64      # output features per thread block in both kernels
+BLOCKS_PER_SM = 2       # resident 256-thread blocks per SM (128 registers)
 
 
 @dataclasses.dataclass
@@ -129,18 +142,15 @@ def _as_tensor(a, device: DeviceSpec) -> torch.Tensor:
     return to_tensor(a, device)
 
 
-def _launch_cuda(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
-    """Validate the operands, allocate the output and launch the kernel on
-    the current stream. Raises on anything the kernel does not take and on
-    a refused launch; never falls back to a plain version."""
+def _check_operands(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
+                    x: torch.Tensor, name: str) -> None:
+    """Raise on anything the kernels do not take."""
     if tile_vals.dim() != 4 or tile_cols.dim() != 2 or x.dim() != 2:
         raise ValueError(
-            f"spmm_bcsr wants tile_cols (R, K), tile_vals (R, K, B, B), "
+            f"{name} wants tile_cols (R, K), tile_vals (R, K, B, B), "
             f"x (C·B, F); got {tuple(tile_cols.shape)}, "
             f"{tuple(tile_vals.shape)}, {tuple(x.shape)}")
     r, k, b, b2 = tile_vals.shape
-    f = x.shape[1]
     if b != b2 or tuple(tile_cols.shape) != (r, k):
         raise ValueError(f"tile shapes disagree: tile_cols "
                          f"{tuple(tile_cols.shape)}, tile_vals "
@@ -153,16 +163,32 @@ def _launch_cuda(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
     if tile_cols.dtype != torch.int32:
         raise TypeError(f"tile_cols must be int32, got {tile_cols.dtype}")
     if tile_vals.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError(f"spmm_bcsr kernel takes float32 only, got "
+        raise TypeError(f"{name} kernel takes float32 only, got "
                         f"tile_vals {tile_vals.dtype}, x {x.dtype}")
     dev = x.device
-    for name, t in (("tile_cols", tile_cols), ("tile_vals", tile_vals),
-                    ("x", x)):
+    for arg, t in (("tile_cols", tile_cols), ("tile_vals", tile_vals),
+                   ("x", x)):
         if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; all operands must "
+            raise ValueError(f"{arg} is on {t.device}; all operands must "
                              f"be on one CUDA device (x is on {dev})")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{arg} must be contiguous")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _launch_cuda(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Validate the operands, allocate the output and launch the kernel on
+    the current stream. Raises on anything the kernel does not take and on
+    a refused launch; never falls back to a plain version."""
+    _check_operands(tile_cols, tile_vals, x, KERNEL)
+    r, k, b, _ = tile_vals.shape
+    f = x.shape[1]
+    dev = x.device
     out = torch.empty((r * b, f), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -175,10 +201,52 @@ def _launch_cuda(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(tile_cols.data_ptr(), tile_vals.data_ptr(), x.data_ptr(),
                  out.data_ptr(), r, k, b, x.shape[0] // b, f, stream)
-    if err != 0:
-        raise RuntimeError(f"spmm_bcsr kernel launch failed: CUDA error "
-                           f"{err}")
+    _raise_on(err, KERNEL)
     build.count_launch(KERNEL)
+    return out
+
+
+def k_splits(r: int, k: int, f: int, sms: int) -> Tuple[int, int]:
+    """``(S, slots per split)`` for the unfused kernel: the fewest K splits
+    whose ``R · ceil(F/64) · S`` blocks cover two waves of the card's
+    resident blocks (``sms`` · 2), never more splits than slots, and no
+    empty split."""
+    if k <= 0:
+        return 1, 0
+    base = r * -(-f // FEATURE_BLOCK)
+    want = -(-2 * sms * BLOCKS_PER_SM // max(base, 1))
+    s = max(1, min(k, want))
+    per = -(-k // s)
+    return -(-k // per), per
+
+
+def _launch_cuda_unfused(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
+                         x: torch.Tensor) -> torch.Tensor:
+    """The unfused kernel: partial sums over ``S`` ranges of K into a
+    workspace, then their sum in split order. Raises like ``_launch_cuda``."""
+    _check_operands(tile_cols, tile_vals, x, KERNEL_UNFUSED)
+    r, k, b, _ = tile_vals.shape
+    f = x.shape[1]
+    dev = x.device
+    out = torch.empty((r * b, f), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s, per = k_splits(r, k, f, sms)
+    ws = torch.empty((s, r * b, f), dtype=torch.float32, device=dev) \
+        if s > 1 else None
+    lib = build.load_library(SOURCE_UNFUSED)
+    fn = lib.spmm_bcsr_unfused_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(tile_cols.data_ptr(), tile_vals.data_ptr(), x.data_ptr(),
+                 ws.data_ptr() if ws is not None else None, out.data_ptr(),
+                 r, k, b, x.shape[0] // b, f, s, per, stream)
+    _raise_on(err, KERNEL_UNFUSED)
+    build.count_launch(KERNEL_UNFUSED)
     return out
 
 
@@ -190,12 +258,14 @@ def spmm_bcsr(bcsr_cols, bcsr_vals, x, impl: Optional[str] = None,
     Tensors stay on their device; host arrays go to ``device`` (``cuda``
     unless the caller passes another, raising without a card).
 
-    impl: None picks by device — the CUDA kernel for CUDA tensors, the
-    plain ``"stream"`` version for CPU tensors. ``"cuda"`` demands the
-    kernel; ``"stream"`` and ``"reference"`` run the plain versions on any
-    device. ``block_f`` is the autotuner's feature-tile width, sized for a
-    TPU's VMEM: a hint the CUDA kernel does not need (it picks its own
-    tiling), accepted so callers keep one decision key.
+    impl: None picks by device — the ``"cuda"`` kernel for CUDA tensors,
+    the plain ``"stream"`` version for CPU tensors. ``"cuda"`` (the
+    reference's ``"fused"``) and ``"cuda_unfused"`` (the reference's
+    ``"pallas"``) demand their kernel and raise on CPU tensors;
+    ``"stream"`` and ``"reference"`` run the plain versions on any device.
+    ``block_f`` is the autotuner's feature-tile width, sized for a TPU's
+    VMEM: a hint the CUDA kernels do not need (they pick their own tiling),
+    accepted so callers keep one decision key.
     """
     cols = _as_tensor(bcsr_cols, device)
     vals = _as_tensor(bcsr_vals, device)
@@ -204,6 +274,8 @@ def spmm_bcsr(bcsr_cols, bcsr_vals, x, impl: Optional[str] = None,
         impl = "cuda" if x.device.type == "cuda" else "stream"
     if impl == "cuda":
         return _launch_cuda(cols, vals, x)
+    if impl == "cuda_unfused":
+        return _launch_cuda_unfused(cols, vals, x)
     if impl == "stream":
         return spmm_bcsr_stream(cols, vals, x)
     if impl == "reference":

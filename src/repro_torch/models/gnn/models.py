@@ -4,14 +4,15 @@ Parameters keep the JAX package's layout — ``{"layers": [{"w", "b",
 "ln_scale", "ln_bias"}, ...]}`` with ``w`` of shape ``(d_in, d_out)``,
 applied as ``h @ w`` — so ``repro_torch.convert.params_from_jax`` carries
 reference parameters over unchanged. Batches are dicts of tensors
-(``repro_torch.device.stage``). This slice serves the GCN: SAGE and GAT,
-dropout and the training losses come with later slices (ROADMAP.md).
+(``repro_torch.device.stage``). The GCN serves and trains (dropout from an
+explicit ``torch.Generator``, masked cross-entropy); SAGE and GAT come with
+a later slice (ROADMAP.md, Queue 1 item 6).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -42,8 +43,8 @@ class GNNConfig:
 def _require_gcn(kind: str) -> None:
     if kind in _LATER:
         raise NotImplementedError(
-            f"{_LATER[kind]} is not ported yet (ROADMAP.md, Queue 1 item 3: "
-            f"GNN model and dispatch policy); this slice serves the GCN")
+            f"{_LATER[kind]} is not ported yet (ROADMAP.md, Queue 1 item 6: "
+            f"SAGE and GAT); the port runs the GCN")
     if kind != "gcn":
         raise ValueError(kind)
 
@@ -92,11 +93,14 @@ def _gcn_layer(p, h, batch, backend="segment", block_f=0):
     return h + p["b"]
 
 
-def gnn_apply(cfg: GNNConfig, params: Dict,
-              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Inference forward pass on one padded batch. Returns logits for ALL
-    nodes (N, C); the caller selects output rows via batch['output_idx'].
-    Runs where the batch and parameters lie."""
+def gnn_apply(cfg: GNNConfig, params: Dict, batch: Dict[str, torch.Tensor],
+              generator: Optional[torch.Generator] = None,
+              train: bool = False) -> torch.Tensor:
+    """Forward pass on one padded batch. Returns logits for ALL nodes
+    (N, C); the caller selects output rows via batch['output_idx']. Runs
+    where the batch and parameters lie. With ``train`` and a ``generator``
+    (on the batch's device), dropout follows the ReLU of every hidden
+    layer, each layer drawing its mask from the generator in turn."""
     _require_gcn(cfg.kind)
     h = batch["features"].to(getattr(torch, cfg.dtype))
     backend = ops.validate_batch_for_backend(
@@ -107,6 +111,9 @@ def gnn_apply(cfg: GNNConfig, params: Dict,
         if l < cfg.num_layers - 1:
             h = ops.layer_norm(h, p["ln_scale"], p["ln_bias"])
             h = torch.relu(h)
+            if train and generator is not None:
+                h = ops.dropout(h, cfg.dropout, generator,
+                                deterministic=False)
     return h
 
 
@@ -115,3 +122,18 @@ def output_logits(logits_all: torch.Tensor,
     """Select the batch's output-node rows (paper: only output nodes get
     predictions; auxiliary nodes exist only to feed them)."""
     return logits_all[batch["output_idx"].long()]
+
+
+def masked_xent(logits: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    mask = mask.to(logits.dtype)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    mask = mask.to(torch.float32)
+    correct = (logits.argmax(-1) == labels).to(torch.float32) * mask
+    return correct.sum() / torch.clamp(mask.sum(), min=1.0)

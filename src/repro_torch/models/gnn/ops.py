@@ -138,3 +138,18 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability ``1 - rate`` and
+    scale the kept ones by ``1 / (1 - rate)``. ``generator`` lies on
+    ``x``'s device and takes the place of the reference's JAX key; the two
+    draw different bits from the same seed, so masks are compared by their
+    statistics, never entry by entry."""
+    if deterministic or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))

@@ -144,3 +144,79 @@ def test_cuda_kernel_matches_plain(block, f):
     assert build.launches["spmm_bcsr"] == 1
     torch.testing.assert_close(got, spmm_bcsr_ref(cols, vals, xp),
                                atol=ATOL, rtol=RTOL)
+
+
+# ---------------------------------------------------------------- unfused
+# The port's impl="cuda_unfused" is the counterpart of the reference's
+# impl="pallas" (spmm_bcsr_pallas), which runs here in interpret mode.
+
+@pytest.mark.parametrize("block", [8, 16, 32])
+@pytest.mark.parametrize("f", [40, 128])
+def test_plain_versions_match_jax_unfused_interpret(block, f):
+    a, x = _case(block, f, seed=2 * block + f)
+    n = a.shape[0]
+    bc = csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=block)
+    xp = np.zeros((bc.num_cols, f), np.float32)
+    xp[:n] = x
+    want = np.asarray(jax_spmm_bcsr(bc.tile_cols, bc.tile_vals, xp,
+                                    impl="interpret", block_f=128))
+    cols, vals = torch.from_numpy(bc.tile_cols), torch.from_numpy(bc.tile_vals)
+    for impl in ("stream", "reference"):
+        got = spmm_bcsr(cols, vals, torch.from_numpy(xp), impl=impl)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_sym_backward_matches_jax_interpret():
+    import jax
+    from repro.kernels.spmm import spmm_bcsr_sym as jax_spmm_bcsr_sym
+    a, x = _case(16, 32, seed=7)
+    n = a.shape[0]
+    bc = csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=16)
+    g = np.random.default_rng(8).normal(size=x.shape).astype(np.float32)
+    want = jax.grad(lambda v: (jax_spmm_bcsr_sym(
+        bc.tile_cols, bc.tile_vals, v, "interpret", 32) * g).sum())(x)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    spmm_bcsr_sym(torch.from_numpy(bc.tile_cols),
+                  torch.from_numpy(bc.tile_vals), xt).backward(
+        torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+    # the backward is the forward on the cotangent (A symmetric)
+    fwd_on_g = spmm_bcsr(bc.tile_cols, bc.tile_vals, g, device="cpu")
+    np.testing.assert_allclose(xt.grad.numpy(), fwd_on_g.numpy(), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("mutate, exc", [
+    (lambda c, v, x: (c, v, x), ValueError),               # CPU tensors
+    (lambda c, v, x: (c.long(), v, x), TypeError),
+    (lambda c, v, x: (c, v, x.double()), TypeError),
+    (lambda c, v, x: (c, v, x[:1]), ValueError),           # rows % B
+    (lambda c, v, x: (c, torch.zeros(1, 1, 129, 129), torch.zeros(129, 3)),
+     ValueError),                                          # B > 128
+], ids=["cpu", "cols-int64", "x-f64", "x-rows", "block-129"])
+def test_cuda_unfused_impl_refuses_what_the_kernel_does_not_take(mutate,
+                                                                 exc):
+    build.reset_launches()
+    with pytest.raises(exc):
+        spmm_bcsr(*mutate(*_tiny_bcsr()), impl="cuda_unfused")
+    with pytest.raises(exc):
+        c, v, x = mutate(*_tiny_bcsr())
+        spmm_bcsr_sym(c, v, x.requires_grad_(x.is_floating_point()),
+                      impl="cuda_unfused")
+    assert build.launches.get("spmm_bcsr_unfused", 0) == 0
+
+
+@pytest.mark.parametrize("r, k, f, sms", [
+    (79, 67, 256, 132), (79, 67, 40, 132), (1, 1, 8, 132), (3, 5, 40, 132),
+    (500, 90, 256, 132), (79, 0, 40, 132)])
+def test_k_splits_cover_two_waves_without_empty_splits(r, k, f, sms):
+    from repro_torch.kernels.spmm.ops import BLOCKS_PER_SM, k_splits
+    s, per = k_splits(r, k, f, sms)
+    assert s >= 1 and s * per >= k
+    if k:
+        assert (s - 1) * per < k                     # no empty split
+        blocks = r * -(-f // 64) * s
+        assert blocks >= 2 * sms * BLOCKS_PER_SM or s == k
+        if s > 1:                                    # the fewest that do
+            assert r * -(-f // 64) * (s - 1) < 2 * sms * BLOCKS_PER_SM
