@@ -12,7 +12,10 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 3. kernels-random — both block-CSR SpMM kernels, forward and backward
               (through ``spmm_bcsr_sym``), and the row gather (f32 and bf16,
               rows that do and do not take 16-byte vectors, ids outside the
-              table) against their plain PyTorch versions on random cases.
+              table) and flash attention (f32 and bf16, causal or not,
+              window 0 or 64, S 128/200/4095, D 64/128, GQA 1 or 4) against
+              their plain PyTorch versions on random cases; bf16 attention
+              is held elementwise to one bf16 rounding of the f32 result.
 4. plan     — the arxiv-like train, val and test Plans for the bcsr backend.
 5. kernels-real — each kernel on the main path's real inputs, with its
               time beside the bound, the plain version and a library call.
@@ -27,9 +30,27 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               the feature table) through their own entry points.
 8. serve    — ``GNNInferenceEngine`` on the test Plan under
               ``backend="bcsr"``, then ``backend="auto"``.
-9. attention-yardstick — ``scaled_dot_product_attention`` at the
-              llama3.2-1b prefill shape and its bound: the TPU flash
-              attention kernel is not ported yet; this is its yardstick.
+9. flash-real — the flash-attention kernel at the llama3.2-1b prefill
+              shape (B=1, 32 heads over 8 kv heads, S=4096, head dim 64,
+              causal) in bf16 and in f32 against the plain version, then
+              its bf16 time beside the bound, the plain version and
+              ``scaled_dot_product_attention`` (the yardstick only).
+10. lm-prefill — the LM main path: ``init_params`` of the full llama3.2-1b
+              (16 layers, bf16) on the card, then ``lm_forward`` and
+              ``head_logits`` on the last position at B=1, S=4096: exactly
+              one flash launch per layer, finite logits, and one forward's
+              device time split by ``torch.profiler``.
+11. lm-card-vs-cpu — the same widths cut to 2 layers, f32, S=256: the
+              card's logits against the CPU path's.
+12. lm-decode — full width and depth in f32, B=2: 256 teacher-forced
+              ``decode_step``s against the prefill's last logits (and the
+              same figure in bf16, printed for the record), each also
+              against a prefill whose attention runs the plain version;
+              then one decode step's kernels and device-busy share under
+              ``torch.profiler``.
+13. lm-serve — ``ServeEngine`` (4 slots, max_len 512) serves 8 seeded
+              requests at full width in bf16; all complete, none evicted,
+              and the first request's tokens equal those it gets alone.
 
 The second-to-last line is a JSON ``kernels`` record and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -37,12 +58,14 @@ it exits non-zero and prints no result.
 """
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
 import sys
 import time
 import traceback
+import unittest.mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -51,9 +74,17 @@ SRC = os.path.join(ROOT, "src")
 # only in summation order, a few ulps per output over at most B·K terms;
 # the same slack holds for the serving logits and for one train step's loss
 # and gradients (CUDA against the CPU) through three layers and two
-# LayerNorms. The row gather is a copy: it must match bit for bit, in f32
-# and in bf16 alike (tolerance 0).
+# LayerNorms, and for the LM's logits through two layers. The row gather is
+# a copy: it must match bit for bit, in f32 and in bf16 alike (tolerance 0).
 ATOL = RTOL = 1e-4
+# flash attention in bf16: the kernel takes the bf16 inputs exactly into
+# f32, accumulates in f32 and rounds each output once to bf16, so it is held
+# elementwise to the plain version on f32 copies of the same inputs within
+# one bf16 rounding (at most 2^-8 of the value) on top of ATOL
+BF16_REL = 2 ** -8
+# decode against prefill over 16 layers: the reference's criterion,
+# max error over max |logit| (tests/test_lm_archs.py)
+DECODE_REL = 2e-2
 
 # published peaks (NVIDIA data sheets, dense, at the full power limit):
 # f32 CUDA-core FLOP/s, bf16 tensor-core FLOP/s and device-memory bytes/s,
@@ -69,11 +100,17 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                           "src/repro/kernels/spmm/spmm.py:37"),
     "gather_rows": ("src/repro_torch/kernels/csrc/gather_rows.cu",
                     "src/repro/kernels/gather_rows/gather_rows.py:29"),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:81"),
 }
 SPMM_IMPLS = {"spmm_bcsr": "cuda", "spmm_bcsr_unfused": "cuda_unfused"}
 
 # ogbn-products' node features: 2,449,029 nodes × 100 f32
 PRODUCTS_NODES, PRODUCTS_FEATURES, GATHER_IDS = 2_449_029, 100, 1 << 20
+
+# the llama3.2-1b prefill: one sequence of 4096 tokens
+LM_ARCH, PREFILL_S = "llama3.2-1b", 4096
 
 
 def fail(msg: str) -> None:
@@ -153,11 +190,17 @@ def bsr_of(torch, cols, vals, n_cols):
             size=(r * b, n_cols))
 
 
-def device_time_split(prof, torch):
-    """A profile's device time (µs) by kind: host→device copies (staging),
-    the SpMM kernel, and everything else."""
+GNN_KINDS = (("staging", lambda k: "Memcpy HtoD" in k),
+             ("spmm_kernel", lambda k: "spmm_bcsr" in k))
+LM_KINDS = (("flash_kernel", lambda k: "flash_fwd" in k),
+            ("gemm", lambda k: any(w in k.lower() for w in (
+                "gemm", "nvjet", "xmma", "cutlass", "matmul"))))
+
+
+def device_events(prof):
+    """(name, count, µs) of each kind of device activity in a profile:
+    kernels, copies and fills, not user annotations."""
     from torch.autograd import DeviceType
-    split = {"staging": 0.0, "spmm_kernel": 0.0, "rest": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or \
                 getattr(e, "is_user_annotation", False):
@@ -165,13 +208,37 @@ def device_time_split(prof, torch):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        if "Memcpy HtoD" in e.key:
-            split["staging"] += us
-        elif "spmm_bcsr" in e.key:
-            split["spmm_kernel"] += us
-        else:
-            split["rest"] += us
+        yield e.key, e.count, us
+
+
+def device_time_split(prof, torch, kinds=GNN_KINDS):
+    """A profile's device time (µs) by kind: the first of ``kinds`` (name,
+    predicate on the kernel's name) that matches, else "rest"."""
+    split = {name: 0.0 for name, _ in kinds}
+    split["rest"] = 0.0
+    for key, _, us in device_events(prof):
+        name = next((n for n, match in kinds if match(key)), "rest")
+        split[name] += us
     return split
+
+
+def attention_bound_ms(b, h, kv, s, d, causal, elem, peak_flops, peak_bw):
+    """Least time for one attention call: q, k and v read once and the
+    output written once, against the operations the mask leaves (two
+    products of 2·D flops per visible (query, key) pair)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4.0 * b * h * pairs * d
+    nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * elem
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def bshd(torch, gen, shape, dtype, dev):
+    """A (B, S, heads, D) normal tensor viewed as (B, heads, S, D), the
+    layout the LM's projections hand the kernel."""
+    return torch.randn(shape, device=dev, generator=gen).to(dtype) \
+        .transpose(1, 2)
 
 
 def main() -> None:
@@ -203,6 +270,8 @@ def main() -> None:
               flush=True)
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention)
     from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
     from repro_torch.kernels.spmm import (
         csr_to_bcsr, spmm_bcsr, spmm_bcsr_ref, spmm_bcsr_stream,
@@ -261,6 +330,20 @@ def main() -> None:
         note("gather_rows", err, f"{label} ({int((~ok).sum())} ids outside "
              f"the table, zero rows)", exact)
 
+    def check_flash(q, k, v, causal, window, label):
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             window=window)
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        limit = ATOL + (BF16_REL * want.abs() if q.dtype == torch.bfloat16
+                        else 0.0)
+        err = diff.max().item()
+        note("flash_attention", err, f"{label} (worst error / limit "
+             f"{(diff / limit).max().item():.3f})", bool(
+                 (diff <= limit).all() and torch.isfinite(got).all())
+             and got.stride() == q.stride())
+
     with phase("kernels-random"):
         rng = np.random.default_rng(0)
         for b in (1, 7, 16, 32, 64, 128):
@@ -287,6 +370,18 @@ def main() -> None:
                 idx[::97] = -3
                 idx[5::97] = 5000
                 check_gather(table, idx, f"random {dtype} F={f}")
+        # flash attention: q (B, S, H, D) and k, v (B, S, KV, D) buffers
+        # passed as (B, heads, S, D) views, as the LM passes them
+        gen = torch.Generator(dev).manual_seed(13)
+        for dtype, causal, window, s, d, g in itertools.product(
+                (torch.float32, torch.bfloat16), (True, False), (0, 64),
+                (128, 200, 4095), (64, 128), (1, 4)):
+            kv = 2
+            q = bshd(torch, gen, (1, s, kv * g, d), dtype, dev)
+            k, v = (bshd(torch, gen, (1, s, kv, d), dtype, dev)
+                    for _ in range(2))
+            check_flash(q, k, v, causal, window, f"random {dtype} causal="
+                        f"{causal} window={window} S={s} D={d} G={g}")
 
     from repro_torch.core import IBMBConfig, IBMBPipeline
     from repro_torch.graph.datasets import get_dataset
@@ -386,7 +481,7 @@ def main() -> None:
     from repro_torch.data.loader import PrefetchLoader, consume, stage_batch
     from repro_torch.device import stage
     from repro_torch.models.gnn import GNNConfig
-    from repro_torch.optim import tree_leaves
+    from repro_torch.optim import tree_leaves, tree_map
     from repro_torch.train import GNNTrainer
 
     cfg = GNNConfig(kind="gcn", hidden=256, num_layers=3, dropout=0.3,
@@ -636,28 +731,234 @@ def main() -> None:
               f"launches {build.launches.get('spmm_bcsr', 0) - before}",
               flush=True)
 
-    with phase("attention-yardstick"):
-        # llama3.2-1b prefill (src/repro/configs/llama3_2_1b.py): B=1, 32
-        # heads, S=4096, head dim 64, causal, bf16
-        b, h, s, d = 1, 32, 4096, 64
+    with phase("flash-real"):
+        # the llama3.2-1b prefill (src/repro/configs/llama3_2_1b.py): B=1,
+        # 32 heads over 8 kv heads, S=4096, head dim 64, causal, bf16
+        b, h, kv, s, d = 1, 32, 8, PREFILL_S, 64
         gen = torch.Generator(dev).manual_seed(11)
-        q, k, v = (torch.randn((b, h, s, d), device=dev, generator=gen,
-                               dtype=torch.bfloat16) for _ in range(3))
+        q = bshd(torch, gen, (b, s, h, d), torch.bfloat16, dev)
+        k, v = (bshd(torch, gen, (b, s, kv, d), torch.bfloat16, dev)
+                for _ in range(2))
+        check_flash(q, k, v, True, 0, f"llama3.2-1b prefill B={b} H={h} "
+                                      f"KV={kv} S={s} D={d} causal bf16")
+        check_flash(q.float(), k.float(), v.float(), True, 0,
+                    f"llama3.2-1b prefill B={b} H={h} KV={kv} S={s} D={d} "
+                    f"causal f32")
+        ms = cuda_ms(torch, lambda: flash_attention(q, k, v), 20)
+        plain = cuda_ms(torch, lambda: attention_ref(q, k, v), 5)
+        # the yardstick wants K and V expanded to H heads, (B, H, S, D)
+        qe, ke, ve = (t.repeat_interleave(h // t.shape[1], dim=1)
+                      .contiguous() for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        out = sdpa(q, k, v, is_causal=True)
+        lib_err = (sdpa(qe, ke, ve, is_causal=True).float() -
+                   attention_ref(q, k, v).float()).abs().max().item()
+        lib = cuda_ms(torch, lambda: sdpa(qe, ke, ve, is_causal=True), 20)
+        bound, by, flops, nbytes = attention_bound_ms(
+            b, h, kv, s, d, True, 2, peak_bf16, peak_bw)
+        floor_f32 = flops / peak_flops * 1e3
+        print(f"flash_attention llama3.2-1b prefill B={b} H={h} KV={kv} "
+              f"S={s} D={d} causal bf16: kernel {ms:.4f} ms, plain "
+              f"(attention_ref) {plain:.4f} ms, library "
+              f"(scaled_dot_product_attention on expanded K/V, err "
+              f"{lib_err:.2e}) {lib:.4f} ms; bound {bound:.4f} ms by {by} "
+              f"({flops / 1e9:.2f} GFLOP at the bf16 tensor peak, "
+              f"{nbytes / 1e6:.1f} MB moved); the f32 CUDA-core floor "
+              f"{floor_f32:.4f} ms; kernel at {flops / ms / 1e9:.2f} "
+              f"TFLOP/s, {bound / ms * 100:.1f}% of bound", flush=True)
+        record["flash_attention"] = dict(ms=ms, plain_ms=plain,
+                                         bound_ms=bound, bound_by=by,
+                                         library_ms=lib)
+        del q, k, v, qe, ke, ve
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import (
+        decode_step, head_logits, init_cache, init_params, lm_forward)
+    from repro_torch.models.lm.config import dense_stages
+    from repro_torch.serve import Request, ServeEngine
+
+    lm_cfg = get_config(LM_ARCH)
+    n_layers = lm_cfg.num_layers
+    trng = np.random.default_rng(17)
+
+    def tokens_of(shape):
+        return torch.as_tensor(trng.integers(0, lm_cfg.vocab_size, shape),
+                               device=dev)
+
+    def last_logits(cfg, params, toks):
+        return head_logits(cfg, params, lm_forward(cfg, params, toks)[:, -1])
+
+    with phase("lm-prefill"), torch.no_grad():
+        t0 = time.perf_counter()
+        params = init_params(lm_cfg, torch.Generator(dev).manual_seed(0),
+                             dev)
         torch.cuda.synchronize()
-        if not torch.isfinite(out).all():
-            raise AssertionError("non-finite attention output")
-        ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True), 20)
-        flops = 4.0 * b * h * s * s * d / 2          # causal half
-        nbytes = 4 * b * h * s * d * 2               # q, k, v read, o written
-        t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
-        print(f"flash_attention yardstick (not ported): "
-              f"scaled_dot_product_attention B={b} H={h} S={s} D={d} causal "
-              f"bf16 {ms:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms by "
-              f"{'operations' if t_ops >= t_bytes else 'bytes'} "
-              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)",
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"{LM_ARCH}: {n_layers} layers, d_model {lm_cfg.d_model}, "
+              f"{lm_cfg.num_heads} heads over {lm_cfg.num_kv_heads} kv "
+              f"heads, head dim {lm_cfg.resolved_head_dim}, d_ff "
+              f"{lm_cfg.d_ff}, vocab {lm_cfg.vocab_size}, {lm_cfg.dtype}: "
+              f"{n_params} parameters initialised on the card in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        toks = tokens_of((1, PREFILL_S))
+        build.reset_launches()
+        logits = last_logits(lm_cfg, params, toks)
+        torch.cuda.synchronize()
+        launches["flash_attention"] = build.launches.get("flash_attention",
+                                                         0)
+        print(f"prefill B=1 S={PREFILL_S}: logits {tuple(logits.shape)} "
+              f"{logits.dtype}, max |logit| "
+              f"{logits.float().abs().max().item():.4f}; flash_attention "
+              f"launches {launches['flash_attention']} (want {n_layers}, "
+              f"one per layer)", flush=True)
+        if launches["flash_attention"] != n_layers:
+            raise AssertionError(f"flash_attention launched "
+                                 f"{launches['flash_attention']} times in "
+                                 f"a {n_layers}-layer prefill")
+        if logits.shape != (1, lm_cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError("non-finite or misshapen prefill logits")
+        ms = cuda_ms(torch, lambda: last_logits(lm_cfg, params, toks), 3)
+        print(f"one prefill (lm_forward + head_logits, CUDA events, mean "
+              f"of 3): {ms:.3f} ms, {PREFILL_S / ms * 1e3:.0f} tokens/s",
               flush=True)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            last_logits(lm_cfg, params, toks)
+            torch.cuda.synchronize()
+        split = device_time_split(prof, torch, LM_KINDS)
+        total = sum(split.values())
+        if total <= 0:
+            raise AssertionError("the profiler recorded no device time")
+        print("one prefill's device time (torch.profiler): " + ", ".join(
+            f"{k} {v / 1e3:.3f} ms ({v / total * 100:.1f}%)"
+            for k, v in split.items()) + f"; total {total / 1e3:.3f} ms",
+            flush=True)
+        print(prof.key_averages().table(sort_by="cuda_time_total",
+                                        row_limit=12), flush=True)
+        serve_params = params
+        del logits
+
+    with phase("lm-card-vs-cpu"), torch.no_grad():
+        # the same widths cut to 2 layers, f32 (TF32 is off)
+        cfg2 = dataclasses.replace(lm_cfg, stages=dense_stages(2),
+                                   dtype="float32")
+        p2 = init_params(cfg2, torch.Generator(dev).manual_seed(1), dev)
+        toks = tokens_of((1, 256))
+        build.reset_launches()
+        got = last_logits(cfg2, p2, toks)
+        torch.cuda.synchronize()
+        if build.launches.get("flash_attention", 0) != 2:
+            raise AssertionError("the 2-layer card forward did not launch "
+                                 "the flash kernel once per layer")
+        cpu_p = tree_map(lambda t: t.cpu(), p2)
+        want = last_logits(cfg2, cpu_p, toks.cpu())
+        err = (got.cpu() - want).abs().max().item()
+        print(f"2-layer f32 prefill S=256, card (flash kernel) vs CPU "
+              f"(chunked_attention): logits max_abs_err {err:.3e}, max "
+              f"|logit| {want.abs().max().item():.4f}", flush=True)
+        torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
+        del p2, cpu_p
+
+    from repro_torch.models.lm import attention as lm_attention
+
+    def plain_attention(q, k, v, causal=True, window=0, impl=None):
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+    with phase("lm-decode"), torch.no_grad():
+        cfg32 = dataclasses.replace(lm_cfg, dtype="float32")
+        p32 = init_params(cfg32, torch.Generator(dev).manual_seed(0), dev)
+        toks = tokens_of((2, 256))
+        figures = {}
+        for cfg, p in ((cfg32, p32), (lm_cfg, serve_params)):
+            full = last_logits(cfg, p, toks).float()
+            # the same prefill with its attention through the plain
+            # attention_ref on the card: tells the kernel's share of the
+            # decode-vs-prefill figure from the model's own
+            with unittest.mock.patch.object(lm_attention, "flash_attention",
+                                            plain_attention):
+                plain = last_logits(cfg, p, toks).float()
+            cache = init_cache(cfg, 2, 512, dev)
+            t0 = time.perf_counter()
+            for t in range(toks.shape[1]):
+                logits, cache = decode_step(cfg, p, cache,
+                                            toks[:, t:t + 1], t)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / toks.shape[1]
+            scale = full.abs().max().item() + 1e-9
+            err, err_plain, kernel_gap = (
+                (a - b).abs().max().item() for a, b in (
+                    (logits[:, 0].float(), full),
+                    (logits[:, 0].float(), plain), (full, plain)))
+            figures[cfg.dtype] = err / scale
+            print(f"{cfg.dtype}: 256 teacher-forced decode steps (B=2, "
+                  f"cache 512) vs prefill, last logits max_abs_err "
+                  f"{err:.3e} / max |logit| {scale:.4f} = "
+                  f"{err / scale:.3e}; against the prefill through "
+                  f"attention_ref {err_plain / scale:.3e}; flash vs plain "
+                  f"prefill logits {kernel_gap / scale:.3e}; "
+                  f"{step_ms:.2f} ms per step (host clock)", flush=True)
+            # what the card does in a decode step: kernels launched and
+            # device time per step under the profiler, against the step's
+            # wall time above (taken without the profiler)
+            n_prof = 8
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for t in range(256, 256 + n_prof):
+                    decode_step(cfg, p, cache, toks[:, :1], t)
+                torch.cuda.synchronize()
+            acts = list(device_events(prof))
+            kernels = sum(n for _, n, _ in acts) / n_prof
+            busy = sum(us for _, _, us in acts) / 1e3 / n_prof
+            print(f"{cfg.dtype} decode step (torch.profiler, {n_prof} "
+                  f"steps): {kernels:.0f} device kernels and copies, "
+                  f"{busy:.3f} ms of device time per step; device busy "
+                  f"{busy / step_ms * 100:.1f}% of the {step_ms:.2f} ms "
+                  f"step", flush=True)
+            del cache
+        if not figures["float32"] < DECODE_REL:
+            raise AssertionError(f"f32 decode diverges from prefill: "
+                                 f"{figures['float32']:.3e}")
+        del p32
+
+    with phase("lm-serve"), torch.no_grad():
+        srng = np.random.default_rng(23)
+        prompts = [srng.integers(0, lm_cfg.vocab_size,
+                                 int(srng.integers(32, 65))).astype(np.int32)
+                   for _ in range(8)]
+        reqs = [Request(prompt=pr, max_new_tokens=16) for pr in prompts]
+        eng = ServeEngine(lm_cfg, serve_params, num_slots=4, max_len=512,
+                          device=dev)
+        build.reset_launches()
+        stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        new = sum(len(r.out_tokens) for r in reqs)
+        print(f"ServeEngine {LM_ARCH} bf16, 4 slots, max_len 512: "
+              f"{stats['completed']}/8 requests, {stats['evicted']} "
+              f"evicted, {stats['steps']} steps in {stats['time_s']:.3f} s "
+              f"(host clock), {stats['time_s'] * 1e3 / stats['steps']:.2f} "
+              f"ms per step, {new / stats['time_s']:.1f} generated "
+              f"tokens/s; flash_attention launches "
+              f"{build.launches.get('flash_attention', 0)} (decode runs "
+              f"none)", flush=True)
+        if stats["completed"] != 8 or stats["evicted"] != 0:
+            raise AssertionError(f"serving left requests unfinished: "
+                                 f"{stats}")
+        if not all(len(r.out_tokens) == 16 and all(
+                0 <= t < lm_cfg.vocab_size for t in r.out_tokens)
+                for r in reqs):
+            raise AssertionError("bad generated tokens")
+        # slots are independent: the first request alone in a fresh
+        # engine gets the same tokens
+        alone = Request(prompt=prompts[0], max_new_tokens=16)
+        ServeEngine(lm_cfg, serve_params, num_slots=4, max_len=512,
+                    device=dev).run([alone])
+        print(f"request 0: {reqs[0].out_tokens}; alone: "
+              f"{alone.out_tokens}", flush=True)
+        if alone.out_tokens != reqs[0].out_tokens:
+            raise AssertionError("request 0's tokens depend on its "
+                                 "neighbours in the batch")
+        del serve_params, params, eng
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,

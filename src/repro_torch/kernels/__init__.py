@@ -13,4 +13,8 @@ PyTorch version beside it that the CPU path and the tests use.
   gather_rows — row gather ``out = table[idx]``: ``csrc/gather_rows.cu``
                 replaces ``gather_rows_pallas``
                 (``repro/kernels/gather_rows/gather_rows.py``).
+  flash_attention — causal/windowed GQA attention with an online softmax:
+                ``csrc/flash_attention.cu`` replaces
+                ``flash_attention_pallas``
+                (``repro/kernels/flash_attention/flash_attention.py``).
 """

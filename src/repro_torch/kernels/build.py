@@ -21,7 +21,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 #: every kernel source of the port
-SOURCES = ("spmm_bcsr.cu", "spmm_bcsr_unfused.cu", "gather_rows.cu")
+SOURCES = ("spmm_bcsr.cu", "spmm_bcsr_unfused.cu", "gather_rows.cu",
+           "flash_attention.cu")
 
 #: launches per kernel name since the last reset; a wrapper adds one where
 #: it launches its kernel and nowhere else

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the kernels this slice added against their
-plain versions, the loader's side-stream staging and a short fit.
+"""The port on a CUDA card: the kernels against their plain versions, the
+loader's side-stream staging, a short fit, and the LM's prefill and
+serving through the flash-attention kernel.
 
 Every test is marked ``cuda`` and skips without a card. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -13,6 +14,7 @@ import scipy.sparse as sp
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
 from repro_torch.kernels.spmm import csr_to_bcsr, spmm_bcsr_ref, spmm_bcsr_sym
 
@@ -102,3 +104,87 @@ def test_short_fit_launches_the_kernel_on_every_aggregation(dev):
     assert build.launches["spmm_bcsr"] == \
         2 * (4 * len(train) + 2 * len(val))
     assert all(np.isfinite(h["train_loss"]) for h in res.history)
+
+
+# ---------------------------------------------------------- flash attention
+def _bshd(gen, shape, dtype, dev):
+    """(B, S, heads, D) viewed as (B, heads, S, D), as the LM passes it."""
+    return torch.randn(shape, device=dev, generator=gen).to(dtype) \
+        .transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0), (False, 64)])
+@pytest.mark.parametrize("s,d,g", [(200, 64, 4), (333, 128, 1),
+                                   (64, 64, 8)])
+def test_flash_kernel_matches_plain(dev, dtype, causal, window, s, d, g):
+    """Against the plain version on f32 copies of the same inputs: f32
+    differs in summation order only; bf16 adds one rounding of each output
+    (at most 2^-8 of its size), since the kernel accumulates in f32."""
+    gen = torch.Generator(dev).manual_seed(s)
+    q = _bshd(gen, (2, s, 2 * g, d), dtype, dev)
+    k, v = (_bshd(gen, (2, s, 2, d), dtype, dev) for _ in range(2))
+    build.reset_launches()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window)
+    torch.cuda.synchronize()
+    assert build.launches["flash_attention"] == 1
+    assert got.stride() == q.stride() and got.dtype == dtype
+    limit = ATOL + (2 ** -8 * want.abs() if dtype == torch.bfloat16 else 0)
+    assert bool(((got.float() - want).abs() <= limit).all())
+
+
+def _lm_cfg():
+    """A narrow llama-like config with the kernel's head dim."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("llama3.2-1b"), d_model=256,
+                               num_heads=4, num_kv_heads=2, head_dim=64)
+
+
+def test_lm_prefill_launches_once_per_layer_and_matches_cpu(dev):
+    from repro_torch.models.lm import head_logits, init_params, lm_forward
+    from repro_torch.optim import tree_map
+    cfg = _lm_cfg()
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 77)), device=dev)
+    build.reset_launches()
+    with torch.no_grad():
+        got = head_logits(cfg, params, lm_forward(cfg, params, toks)[:, -1])
+        torch.cuda.synchronize()
+        assert build.launches["flash_attention"] == cfg.num_layers
+        cpu = tree_map(lambda t: t.cpu(), params)
+        want = head_logits(cfg, cpu, lm_forward(cfg, cpu, toks.cpu())[:, -1])
+    torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_serve_engine_on_the_card_matches_cpu_tokens(dev):
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim import tree_map
+    from repro_torch.serve import Request, ServeEngine
+    cfg = _lm_cfg()
+    params = init_params(cfg, torch.Generator().manual_seed(1), dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, 5).astype(np.int32)
+               for _ in range(5)]
+    out = {}
+    for where, p in (("cuda", params),
+                     ("cpu", tree_map(lambda t: t.cpu(), params))):
+        reqs = [Request(prompt=pr, max_new_tokens=4) for pr in prompts]
+        stats = ServeEngine(cfg, p, num_slots=2, max_len=64,
+                            device=where).run(reqs)
+        assert stats["completed"] == 5
+        out[where] = [r.out_tokens for r in reqs]
+    assert out["cuda"] == out["cpu"]
+
+
+def test_flash_kernel_refuses_grad(dev):
+    q = torch.zeros((1, 2, 16, 64), device=dev, requires_grad=True)
+    k = v = torch.zeros((1, 2, 16, 64), device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, v)
+    with torch.no_grad():
+        assert flash_attention(q, k, v).shape == q.shape

@@ -52,7 +52,16 @@ def test_fresh_import_loads_no_jax_and_no_repro():
                 "repro_torch.train.gnn_trainer", "repro_torch.data.loader",
                 "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
                 "repro_torch.optim.accumulate", "repro_torch.faults",
-                "repro_torch.graph.sampling"):
+                "repro_torch.graph.sampling",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.configs.registry", "repro_torch.configs.shapes",
+                "repro_torch.configs.llama3_2_1b",
+                "repro_torch.configs.deepseek_v3_671b",
+                "repro_torch.models.lm.config", "repro_torch.models.lm.common",
+                "repro_torch.models.lm.attention",
+                "repro_torch.models.lm.blocks", "repro_torch.models.lm.model",
+                "repro_torch.serve.engine", "repro_torch.convert"):
         assert mod in got["modules"]
     assert got["loaded"] == []
 
