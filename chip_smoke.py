@@ -15,7 +15,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               table) and flash attention (f32 and bf16, causal or not,
               window 0 or 64, S 128/200/4095, D 64/128, GQA 1 or 4) against
               their plain PyTorch versions on random cases; bf16 attention
-              is held elementwise to one bf16 rounding of the f32 result.
+              (the tensor-core kernel) is held elementwise to one bf16
+              rounding of the f32 result, f32 attention (the CUDA-core
+              kernel) to 1e-4.
 4. plan     — the arxiv-like train, val and test Plans for the bcsr backend.
 5. kernels-real — each kernel on the main path's real inputs, with its
               time beside the bound, the plain version and a library call.
@@ -34,7 +36,10 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               shape (B=1, 32 heads over 8 kv heads, S=4096, head dim 64,
               causal) in bf16 and in f32 against the plain version, then
               its bf16 time beside the bound, the plain version and
-              ``scaled_dot_product_attention`` (the yardstick only).
+              ``scaled_dot_product_attention`` (the yardstick only); the
+              bf16 kernel's SASS must hold tensor-core (HGMMA) and TMA
+              (UTMALDG) instructions; its registers, spills and shared
+              memory per block from the build.
 10. lm-prefill — the LM main path: ``init_params`` of the full llama3.2-1b
               (16 layers, bf16) on the card, then ``lm_forward`` and
               ``head_logits`` on the last position at B=1, S=4096: exactly
@@ -57,10 +62,12 @@ The second-to-last line is a JSON ``kernels`` record and the last line is
 it exits non-zero and prints no result.
 """
 import contextlib
+import ctypes
 import dataclasses
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -232,6 +239,26 @@ def attention_bound_ms(b, h, kv, s, d, causal, elem, peak_flops, peak_bw):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, nbytes)
+
+
+def sass_counts(sass: str, words=("HGMMA", "UTMALDG")):
+    """{kernel: {word: count}} over the functions of a ``cuobjdump -sass``
+    listing."""
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        counts[name.strip()] = {w: body.count(w) for w in words}
+    return counts
+
+
+def ptxas_report(log: str):
+    """(kernel, registers, stack bytes, spill store and load bytes) of each
+    entry function in a ``ptxas -v`` report."""
+    return [(m[1], int(m[5]), int(m[2]), int(m[3]), int(m[4]))
+            for m in re.finditer(
+                r"Compiling entry function '(\w+)'.*?(\d+) bytes stack "
+                r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                r"loads.*?Used (\d+) registers", log, re.S)]
 
 
 def bshd(torch, gen, shape, dtype, dev):
@@ -770,6 +797,32 @@ def main() -> None:
                                          library_ms=lib)
         del q, k, v, qe, ke, ve
 
+        # bf16 runs on the tensor cores: the kernel's SASS must hold wgmma
+        # (HGMMA) and TMA loads (UTMALDG)
+        source = os.path.basename(KERNELS["flash_attention"][0])
+        sass = subprocess.run(
+            [build.cuda_tool("cuobjdump"), "-sass",
+             build.library_path(source)],
+            capture_output=True, text=True, check=True).stdout
+        tc = {name: c for name, c in sass_counts(sass).items()
+              if "flash_fwd_wgmma" in name}
+        for name, c in tc.items():
+            print(f"SASS of {name}: {c['HGMMA']} HGMMA, {c['UTMALDG']} "
+                  f"UTMALDG", flush=True)
+        if not tc or any(min(c.values()) == 0 for c in tc.values()):
+            raise AssertionError(f"the bf16 flash kernel's SASS lacks "
+                                 f"tensor-core or TMA instructions: {tc}")
+        smem = build.load_library(source).flash_attention_bf16_smem_bytes
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        for name, regs, stack, spill_st, spill_ld in ptxas_report(
+                build.build_log(source)):
+            dim = re.search(r"Li(\d+)E", name)
+            extra = (f", {smem(int(dim[1]))} bytes of dynamic shared "
+                     f"memory per block" if "wgmma" in name and dim else "")
+            print(f"ptxas {name}: {regs} registers, {stack} bytes stack, "
+                  f"{spill_st}/{spill_ld} bytes spill stores/loads{extra}",
+                  flush=True)
+
     from repro_torch.configs import get_config
     from repro_torch.models.lm import (
         decode_step, head_logits, init_cache, init_params, lm_forward)
@@ -836,6 +889,16 @@ def main() -> None:
             flush=True)
         print(prof.key_averages().table(sort_by="cuda_time_total",
                                         row_limit=12), flush=True)
+        # which side bounds a prefill: the host's time to enqueue one (no
+        # synchronisation) against the device's busy share of it
+        t0 = time.perf_counter()
+        last_logits(lm_cfg, params, toks)
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        print(f"host enqueue of one prefill {enqueue:.3f} ms (host clock, "
+              f"no synchronisation); the device busy "
+              f"{total / 1e3 / ms * 100:.1f}% of the {ms:.3f} ms prefill",
+              flush=True)
         serve_params = params
         del logits
 

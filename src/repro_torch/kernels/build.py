@@ -2,9 +2,11 @@
 with ``ctypes``, and count kernel launches.
 
 A library is built at first use into ``build/kernels/`` at the root of the
-checkout (listed in ``.gitignore``), named by a hash of its source and
-flags, so an edited source rebuilds and an unchanged one is reused. Only
-the repository's own sources are compiled.
+checkout (listed in ``.gitignore``), named by a hash of its source, of
+every header in ``csrc/`` and of the flags, so an edited source or header
+rebuilds and an unchanged one is reused. The compiler's report (``ptxas
+-v``: registers, spills, shared memory per kernel) is kept beside the
+library. Only the repository's own sources are compiled.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "..", "..", "..", "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: what a source may include from ``csrc/``
+HEADER_SUFFIXES = (".cuh", ".h")
 #: every kernel source of the port
 SOURCES = ("spmm_bcsr.cu", "spmm_bcsr_unfused.cu", "gather_rows.cu",
            "flash_attention.cu")
@@ -40,24 +44,43 @@ def count_launch(name: str) -> None:
     launches[name] = launches.get(name, 0) + 1
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on
+    PATH, else under ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``)."""
+    path = shutil.which(name)
     if path is None:
         home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        path = os.path.join(home, "bin", "nvcc")
+        path = os.path.join(home, "bin", name)
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, CUDA_HOME); the CUDA "
-                           "kernels are built from source at first use")
+        raise RuntimeError(f"{name} not found (PATH, CUDA_HOME); the CUDA "
+                           f"kernels are built from source at first use")
     return path
 
 
 def library_path(source: str) -> str:
-    """Where the library built from ``csrc/<source>`` lives."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the library built from ``csrc/<source>`` lives: named by a
+    hash of the source, of every header in ``csrc/`` (a source may include
+    any of them) and of the flags."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC)
+                     if f.endswith(HEADER_SUFFIXES))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f"{name}\0".encode() + f.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.abspath(os.path.join(
         BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so"))
+
+
+def build_log(source: str) -> str:
+    """The compiler's report from building ``csrc/<source>`` (empty if
+    the library has not been built here)."""
+    try:
+        with open(library_path(source) + ".log") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
 
 
 def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
@@ -74,7 +97,8 @@ def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
             continue
         os.makedirs(os.path.dirname(out), exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, src)]
         running.append((src, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -84,6 +108,9 @@ def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
             failed.append(f"nvcc failed ({proc.returncode}) building "
                           f"{src}:\n{stderr}")
         else:
+            with open(f"{tmp}.log", "w") as f:
+                f.write(stderr)
+            os.replace(f"{tmp}.log", f"{out}.log")
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

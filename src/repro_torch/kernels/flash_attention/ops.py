@@ -2,9 +2,11 @@
 impl)``.
 
 The port of ``repro.kernels.flash_attention.ops``. For CUDA tensors it
-launches the hand-written CUDA kernel ``csrc/flash_attention.cu`` (the
-counterpart of ``flash_attention_pallas``); for CPU tensors it runs the
-plain ``attention_ref``. Forward only, as in the reference: there is no
+launches the hand-written CUDA kernels of ``csrc/flash_attention.cu`` (the
+counterpart of ``flash_attention_pallas``): bf16 inputs go to a kernel on
+the tensor cores (``wgmma``, fed by TMA), f32 inputs to one that computes
+in exact f32 on the CUDA cores. For CPU tensors it runs the plain
+``attention_ref``. Forward only, as in the reference: there is no
 backward, so the wrapper refuses inputs that would need one.
 """
 from __future__ import annotations
@@ -47,6 +49,17 @@ def _launch_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{k.dtype}, {v.dtype}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(
+                    n > 1 and st % 8 for n, st in zip(t.shape[:3],
+                                                      t.stride()[:3])):
+                raise ValueError(
+                    f"{name}: the bf16 kernel reads through TMA, which "
+                    f"needs a 16-byte-aligned start and batch, head and "
+                    f"sequence strides that are multiples of 16 bytes (8 "
+                    f"values); got strides {t.stride()} at offset "
+                    f"{t.data_ptr() % 16} bytes past a 16-byte boundary")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention has no backward (nor has the "
                            "reference's kernel); call it under "
@@ -93,9 +106,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     impl: None picks by device — the CUDA kernel for CUDA tensors, the
     plain ``attention_ref`` (``"reference"``) for CPU tensors; ``"cuda"``
-    demands the kernel and raises on CPU tensors. The kernel takes f32 and
+    demands the kernel and raises on CPU tensors. The kernels take f32 and
     bf16, D in (64, 128), any S, and any strides whose last axis is
-    contiguous.
+    contiguous; bf16 also wants a 16-byte-aligned start and batch, head
+    and sequence strides that are multiples of 8 values (TMA's rule).
     """
     if impl is None:
         impl = "cuda" if q.device.type == "cuda" else "reference"

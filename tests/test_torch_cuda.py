@@ -115,16 +115,30 @@ def _bshd(gen, shape, dtype, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
-                                           (False, 0), (False, 64)])
+                                           (False, 0), (False, 64),
+                                           (True, 5000), (False, 5000)])
 @pytest.mark.parametrize("s,d,g", [(200, 64, 4), (333, 128, 1),
-                                   (64, 64, 8)])
-def test_flash_kernel_matches_plain(dev, dtype, causal, window, s, d, g):
+                                   (64, 64, 8), (1, 64, 1), (63, 128, 2),
+                                   (65, 64, 1), (127, 128, 4), (129, 64, 2),
+                                   (4095, 64, 4), (4095, 128, 1)])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_flash_kernel_matches_plain(dev, dtype, causal, window, s, d, g,
+                                    layout):
     """Against the plain version on f32 copies of the same inputs: f32
     differs in summation order only; bf16 adds one rounding of each output
-    (at most 2^-8 of its size), since the kernel accumulates in f32."""
+    (at most 2^-8 of its size), since the kernel accumulates in f32.
+    Lengths on both sides of the 64- and 128-key tiles, a window longer
+    than S, (B, S, heads, D) buffers as transposed views and contiguous
+    (B, heads, S, D) tensors."""
     gen = torch.Generator(dev).manual_seed(s)
-    q = _bshd(gen, (2, s, 2 * g, d), dtype, dev)
-    k, v = (_bshd(gen, (2, s, 2, d), dtype, dev) for _ in range(2))
+    if layout == "bshd":
+        q = _bshd(gen, (2, s, 2 * g, d), dtype, dev)
+        k, v = (_bshd(gen, (2, s, 2, d), dtype, dev) for _ in range(2))
+    else:
+        q = torch.randn((2, 2 * g, s, d), device=dev, generator=gen) \
+            .to(dtype)
+        k, v = (torch.randn((2, 2, s, d), device=dev, generator=gen)
+                .to(dtype) for _ in range(2))
     build.reset_launches()
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
@@ -179,6 +193,19 @@ def test_serve_engine_on_the_card_matches_cpu_tokens(dev):
         assert stats["completed"] == 5
         out[where] = [r.out_tokens for r in reqs]
     assert out["cuda"] == out["cpu"]
+
+
+def test_flash_kernel_refuses_bf16_strides_tma_cannot_read(dev):
+    """bf16 reads through TMA: a sequence stride of 68 values (136 bytes)
+    is refused with a clear error, never launched."""
+    q = torch.zeros((1, 2, 16, 68), device=dev,
+                    dtype=torch.bfloat16)[..., :64]
+    k = v = torch.zeros((1, 2, 16, 64), device=dev, dtype=torch.bfloat16)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention(q, k, v)
+    assert build.launches.get("flash_attention", 0) == 0
+    assert flash_attention(q.contiguous(), k, v).shape == q.shape
 
 
 def test_flash_kernel_refuses_grad(dev):

@@ -15,7 +15,8 @@ import pytest
 _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _PORT = os.path.join(_ROOT, "src", "repro_torch")
 _SCRIPTS = [os.path.join(_ROOT, f) for f in ("chip_smoke.py",
-                                             "plan_survey.py")]
+                                             "plan_survey.py",
+                                             "tools/flash_variants.py")]
 
 _PROBE = r"""
 import importlib, importlib.util, json, pkgutil, sys
