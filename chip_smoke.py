@@ -8,9 +8,15 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 
 1. device   — require CUDA, print the card's name and power limit, TF32 off.
 2. build    — compile every kernel source of the port from the checkout,
-              one ``nvcc`` per source, all started together.
+              one ``nvcc`` per source, all started together; each SpMM
+              kernel's registers and spills (``ptxas -v``, fatal if it
+              spills) and the bulk copies (UBLKCP) in the SASS of every
+              instantiation that streams by them (fatal if absent).
 3. kernels-random — both block-CSR SpMM kernels, forward and backward
-              (through ``spmm_bcsr_sym``), and the row gather (f32 and bf16,
+              (through ``spmm_bcsr_sym``; B 1-128, F 40/128/256/300, an
+              all-zero slot, column tiles outside x, a NaN x row that
+              reaches only its readers, two calls bitwise equal), and the
+              row gather (f32 and bf16,
               rows that do and do not take 16-byte vectors, ids outside the
               table) and flash attention (f32 and bf16, causal or not,
               window 0 or 64, S 128/200/4095, D 64/128, GQA 1 or 4) against
@@ -18,9 +24,17 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               (the tensor-core kernel) is held elementwise to one bf16
               rounding of the f32 result, f32 attention (the CUDA-core
               kernel) to 1e-4.
-4. plan     — the arxiv-like train, val and test Plans for the bcsr backend.
+4. plan     — the arxiv-like train, val and test Plans for the bcsr backend,
+              and what batches 0 and 1 of train and test hold (nonzero
+              tiles, entries, chunks and columns).
 5. kernels-real — each kernel on the main path's real inputs, with its
-              time beside the bound, the plain version and a library call.
+              time beside the bound, the plain version and a library call
+              (for the SpMM, timed with the calls queued behind a held
+              card: one call's kernels are shorter than the host's
+              dispatch of it, which is printed beside them); for the SpMM
+              also the unfused kernel with S = 2 forced, the bytes moved,
+              the GB/s and share of the per-entry bound, beside the
+              per-tile count of the first kernels' bound.
 6. train    — the main path: ``GNNTrainer.fit`` of the paper's ogbn GCN
               (hidden 256, 3 layers, dropout 0.3, Adam) for 2 epochs on the
               train Plan under ``backend="bcsr"``; exact SpMM launch count,
@@ -116,6 +130,9 @@ SPMM_IMPLS = {"spmm_bcsr": "cuda", "spmm_bcsr_unfused": "cuda_unfused"}
 # ogbn-products' node features: 2,449,029 nodes × 100 f32
 PRODUCTS_NODES, PRODUCTS_FEATURES, GATHER_IDS = 2_449_029, 100, 1 << 20
 
+# clock cycles ``queued_ms`` holds the card for (about 50 ms on an H100)
+HOLD_CYCLES = 100_000_000
+
 # the llama3.2-1b prefill: one sequence of 4096 tokens
 LM_ARCH, PREFILL_S = "llama3.2-1b", 4096
 
@@ -160,19 +177,74 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(torch, fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, after
+    one warm-up call, by CUDA events, with every call enqueued while the
+    card is held busy (``torch.cuda._sleep``): for calls whose kernels are
+    shorter than the host's dispatch of a call, where plain back-to-back
+    timing would time the host. Raises if the host took longer to enqueue
+    the calls than the card slept."""
+    fn()
+    torch.cuda.synchronize()
+    hold, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    hold.record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if not hold.elapsed_time(start) > enqueue_ms:
+        raise AssertionError(f"the host took {enqueue_ms:.3f} ms to enqueue "
+                             f"{iters} calls, longer than the card was held")
+    return start.elapsed_time(end) / iters
+
+
 def spmm_bound_ms(cols, vals, x, peak_flops, peak_bw):
-    """Least time for one call on these inputs: every input read once and
-    the output written once, against the f32 operations the data needs —
-    one B×B by B×F product per tile that holds a nonzero."""
+    """Least time for one call on these inputs: tile_cols, tile_vals and x
+    read once and the output written once, against the f32 operations the
+    data needs, two per nonzero entry and feature (2·nnz·F). Also returns
+    the per-tile count that bounded the first, dense kernels (one B×B by
+    B×F product per tile that holds a nonzero) for comparison."""
     r, k, b, _ = vals.shape
     f = x.shape[1]
+    nnz = int((vals != 0).sum())
     nz_tiles = int((vals != 0).any(dim=3).any(dim=2).sum())
     nbytes = (cols.numel() * 4 + vals.numel() * 4 + x.numel() * 4
               + r * b * f * 4)
-    flops = 2.0 * nz_tiles * b * b * f
+    flops = 2.0 * nnz * f
     t_bytes, t_ops = nbytes / peak_bw * 1e3, flops / peak_flops * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nz_tiles, flops, nbytes)
+    tile_flops = 2.0 * nz_tiles * b * b * f
+    return dict(ms=max(t_bytes, t_ops), by="bytes" if t_bytes >= t_ops
+                else "operations", bytes_ms=t_bytes, nbytes=nbytes,
+                nnz=nnz, flops=flops, nz_tiles=nz_tiles,
+                tile_ms=max(t_bytes, tile_flops / peak_flops * 1e3),
+                tile_flops=tile_flops)
+
+
+def tile_survey(torch, vals):
+    """What one batch's padded tiles (B a multiple of 32) hold: slots,
+    nonzero tiles, nonzero entries, entries per nonzero tile, the nonzero
+    tiles' share of the bytes, the share of their 32-wide column chunks
+    that hold a nonzero, and the share of their columns that do."""
+    r, k, b, _ = vals.shape
+    nz = vals != 0
+    tiles = nz.any(dim=3).any(dim=2)
+    n_tiles, nnz = int(tiles.sum()), int(nz.sum())
+    cols_used = nz.any(dim=2)                              # (R, K, B)
+    chunks = cols_used.reshape(r, k, b // 32, 32).any(dim=3)[tiles]
+    return (f"{r}x{k} = {r * k} slots, {n_tiles} nonzero tiles "
+            f"({n_tiles / (r * k) * 100:.1f}%), {nnz} nonzero entries, "
+            f"{nnz / max(n_tiles, 1):.1f} per nonzero tile, nonzero tiles' "
+            f"bytes {n_tiles * b * b * 4 / 1e6:.1f} of "
+            f"{vals.numel() * 4 / 1e6:.1f} MB, 32-wide chunks of nonzero "
+            f"tiles holding a nonzero "
+            f"{chunks.float().mean().item() * 100:.0f}%, columns of a "
+            f"nonzero tile used "
+            f"{cols_used[tiles].float().mean().item() * 100:.0f}%")
 
 
 def gather_bound_ms(torch, table, idx, peak_bw):
@@ -261,6 +333,29 @@ def ptxas_report(log: str):
                 r"loads.*?Used (\d+) registers", log, re.S)]
 
 
+def spmm_build_report(build, source):
+    """Print each SpMM kernel's registers and spills from its ``ptxas -v``
+    report and its bulk copies (UBLKCP) from its SASS; raise if a kernel
+    spills or an instantiation that streams by bulk copies (template
+    argument ``kBulk = true``, ``Lb1E`` in the mangled name) has none."""
+    for name, regs, stack, spill_st, spill_ld in ptxas_report(
+            build.build_log(source)):
+        print(f"ptxas {name}: {regs} registers, {stack} bytes stack, "
+              f"{spill_st}/{spill_ld} bytes spill stores/loads", flush=True)
+        if spill_st or spill_ld:
+            raise AssertionError(f"{name} spills registers")
+    sass = subprocess.run(
+        [build.cuda_tool("cuobjdump"), "-sass", build.library_path(source)],
+        capture_output=True, text=True, check=True).stdout
+    bulk = {name: c for name, c in sass_counts(sass, ("UBLKCP",)).items()
+            if "Lb1E" in name}
+    for name, c in bulk.items():
+        print(f"SASS of {name}: {c['UBLKCP']} UBLKCP", flush=True)
+    if not bulk or any(c["UBLKCP"] == 0 for c in bulk.values()):
+        raise AssertionError(f"{source}: a bulk-copy kernel's SASS lacks "
+                             f"UBLKCP: {bulk}")
+
+
 def bshd(torch, gen, shape, dtype, dev):
     """A (B, S, heads, D) normal tensor viewed as (B, heads, S, D), the
     layout the LM's projections hand the kernel."""
@@ -312,6 +407,9 @@ def main() -> None:
             print(f"{src} -> {path}", flush=True)
         print(f"built {len(paths)} sources in parallel in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for src, _ in KERNELS.values():
+            if "spmm" in src:
+                spmm_build_report(build, os.path.basename(src))
 
     max_err = {name: 0.0 for name in KERNELS}
     record = {}
@@ -344,6 +442,52 @@ def main() -> None:
             err = (xg.grad - want).abs().max().item()
             note(name, err, label + " backward", bool(torch.allclose(
                 xg.grad, want, atol=ATOL, rtol=RTOL)))
+
+    def check_spmm_edges(bc, f, label):
+        """Both SpMM kernels with two more slots per row tile: an all-zero
+        tile at a live column tile, and nonzero tiles at column tiles C
+        and -1, outside x, which the kernels skip (the plain version sees
+        them zeroed); two calls must give the same bits. Then a NaN x row
+        that a nonzero entry reads: exactly its readers' outputs are NaN,
+        and every other output matches the plain version on x with the row
+        zeroed."""
+        b, k = bc.block, bc.tile_cols.shape[1]
+        padded = bc.with_pad_k(k + 2)
+        cols, vals = padded.tile_cols.copy(), padded.tile_vals.copy()
+        c = padded.num_cols // b
+        cols[:, k] = 1 % c
+        cols[0, k + 1], cols[-1, k + 1] = c, -1
+        vals[0, k + 1] = vals[-1, k + 1] = 1.0
+        seen_c, seen_v = cols.copy(), vals.copy()
+        seen_c[[0, -1], k + 1], seen_v[[0, -1], k + 1] = 0, 0.0
+        cols, vals, seen_c, seen_v = (torch.as_tensor(t, device=dev) for t in
+                                      (cols, vals, seen_c, seen_v))
+        x = torch.as_tensor(rng.normal(size=(padded.num_cols, f))
+                            .astype(np.float32), device=dev)
+        r0, k0, _i, j0 = (int(v) for v in (seen_v != 0).nonzero()[0])
+        p = int(seen_c[r0, k0]) * b + j0
+        readers = ((seen_v[..., p % b] != 0) &
+                   (seen_c == p // b)[..., None]).any(dim=1).reshape(-1)
+        xn, xz = x.clone(), x.clone()
+        xn[p], xz[p] = float("nan"), 0.0
+        want, want_z = (spmm_bcsr_ref(seen_c, seen_v, t) for t in (x, xz))
+        for name, impl in SPMM_IMPLS.items():
+            got, again = (spmm_bcsr(cols, vals, x, impl=impl)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            note(name, (got - want).abs().max().item(), f"{label} all-zero "
+                 f"slot, column tiles outside x, two calls bitwise equal",
+                 bool(torch.allclose(got, want, atol=ATOL, rtol=RTOL)) and
+                 torch.equal(got.view(torch.int32), again.view(torch.int32)))
+            got = spmm_bcsr(cols, vals, xn, impl=impl)
+            torch.cuda.synchronize()
+            rest = ~readers
+            note(name, (got[rest] - want_z[rest]).abs().max().item(),
+                 f"{label} NaN x row {p} ({int(readers.sum())} readers)",
+                 torch.equal(torch.isnan(got).all(dim=1), readers) and
+                 not bool(torch.isnan(got[rest]).any()) and
+                 bool(torch.allclose(got[rest], want_z[rest], atol=ATOL,
+                                     rtol=RTOL)))
 
     def check_gather(table, idx, label):
         got = gather_rows(table, idx)
@@ -381,11 +525,13 @@ def main() -> None:
             bc = csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=b)
             cols = torch.as_tensor(bc.tile_cols, device=dev)
             vals = torch.as_tensor(bc.tile_vals, device=dev)
-            for f in (40, 128, 256):
+            for f in (40, 128, 256, 300):
                 x = torch.as_tensor(rng.normal(size=(bc.num_cols, f))
                                     .astype(np.float32), device=dev)
                 check_spmm(cols, vals, x, f"random B={b} K={cols.shape[1]} "
                                           f"F={f}")
+            for f in (40, 300):
+                check_spmm_edges(bc, f, f"random B={b} F={f}")
         for dtype in (torch.float32, torch.bfloat16):
             for f in (100, 128, 256, 37):       # F=37: no 16-byte vectors
                 table = torch.as_tensor(rng.normal(size=(5000, f)),
@@ -428,8 +574,19 @@ def main() -> None:
                   f"{tv.nbytes / 1e9:.3f} GB, autotuner decisions "
                   f"{sorted(set(plan.batch_backends()))}, built in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
+        # what the SpMM kernels are given: the tiles of batches 0 and 1
+        for split in ("train", "test"):
+            for bi in (0, 1):
+                vals = torch.as_tensor(
+                    plans[split].cache.fields["tile_vals"][bi], device=dev)
+                print(f"arxiv-like {split} batch {bi} tiles: "
+                      f"{tile_survey(torch, vals)}", flush=True)
+                del vals
+
+    from repro_torch.kernels.spmm import ops as spmm_ops
 
     with phase("kernels-real"):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for split in ("train", "test"):
             fields = plans[split].cache.fields
             cols = torch.as_tensor(fields["tile_cols"][0], device=dev)
@@ -441,38 +598,64 @@ def main() -> None:
                                     .astype(np.float32), device=dev)
                 label = f"arxiv-like {split} batch 0 F={f}"
                 check_spmm(cols, vals, x, label, backward=split == "train")
-                bound, by, nz_tiles, flops, nbytes = spmm_bound_ms(
-                    cols, vals, x, peak_flops, peak_bw)
-                plain = cuda_ms(torch, lambda: spmm_bcsr_ref(cols, vals, x),
-                                5)
-                stream = cuda_ms(torch, lambda: spmm_bcsr_stream(
+                bd = spmm_bound_ms(cols, vals, x, peak_flops, peak_bw)
+                # a call's kernels are shorter than the host's dispatch of
+                # it: every time here is taken with the calls queued
+                plain = queued_ms(torch, lambda: spmm_bcsr_ref(
                     cols, vals, x), 5)
-                lib_out = bsr @ x
-                torch.cuda.synchronize()
-                lib_err = (lib_out - spmm_bcsr_ref(cols, vals, x)).abs().max()
-                lib = cuda_ms(torch, lambda: bsr @ x, 10)
-                padded = 2.0 * vals.shape[0] * vals.shape[1] * \
-                    vals.shape[2] ** 2 * f
+                stream = queued_ms(torch, lambda: spmm_bcsr_stream(
+                    cols, vals, x), 5)
+                want = spmm_bcsr_ref(cols, vals, x)
+                lib_err = (bsr @ x - want).abs().max()
+                lib = queued_ms(torch, lambda: bsr @ x, 10)
+                lib_call = cuda_ms(torch, lambda: bsr @ x, 10)
+                r, k, b, _ = vals.shape
+                splits, _per = spmm_ops.k_splits(r, k, b, f, sms)
                 for name, impl in SPMM_IMPLS.items():
-                    ms = cuda_ms(torch, lambda: spmm_bcsr(
+                    ms = queued_ms(torch, lambda: spmm_bcsr(
                         cols, vals, x, impl=impl), 10)
-                    print(f"{name} {label} (R={vals.shape[0]} "
-                          f"K={vals.shape[1]}): kernel {ms:.4f} ms, plain "
-                          f"(reference) {plain:.4f} ms, plain (stream) "
-                          f"{stream:.4f} ms, library (sparse_bsr_tensor @ x, "
-                          f"err {lib_err.item():.2e}) {lib:.4f} ms; bound "
-                          f"{bound:.4f} ms by {by} ({nz_tiles} nonzero tiles "
-                          f"of {vals.shape[0] * vals.shape[1]} slots, "
-                          f"{flops / 1e9:.2f} GFLOP needed, "
-                          f"{padded / 1e9:.2f} GFLOP padded, "
-                          f"{nbytes / 1e6:.1f} MB moved); kernel at "
-                          f"{padded / ms / 1e9:.2f} TFLOP/s padded, "
-                          f"{bound / ms * 100:.1f}% of bound", flush=True)
+                    call = cuda_ms(torch, lambda: spmm_bcsr(
+                        cols, vals, x, impl=impl), 10)
+                    print(f"{name} {label} (R={r} K={k}): kernel {ms:.4f} "
+                          f"ms (queued; {call:.4f} ms a call through "
+                          f"spmm_bcsr by CUDA events over back-to-back "
+                          f"calls, the host's dispatch included), plain "
+                          f"(reference) {plain:.4f} ms, plain "
+                          f"(stream) {stream:.4f} ms, library "
+                          f"(sparse_bsr_tensor @ x, err {lib_err.item():.2e}) "
+                          f"{lib:.4f} ms queued, {lib_call:.4f} ms a call; "
+                          f"bound {bd['ms']:.4f} ms by "
+                          f"{bd['by']} ({bd['nnz']} nonzero entries, "
+                          f"{bd['flops'] / 1e6:.2f} MFLOP needed, "
+                          f"{bd['nbytes'] / 1e6:.1f} MB moved); per-tile "
+                          f"bound {bd['tile_ms']:.4f} ms "
+                          f"({bd['nz_tiles']} nonzero tiles of {r * k} "
+                          f"slots, {bd['tile_flops'] / 1e9:.2f} GFLOP); "
+                          f"kernel at {bd['nbytes'] / ms / 1e6:.1f} GB/s, "
+                          f"{bd['bytes_ms'] / ms * 100:.1f}% of the bytes "
+                          f"bound" + (f"; K split S={splits}"
+                                      if impl == "cuda_unfused" else ""),
+                          flush=True)
                     if split == "train" and f == 256:
                         record[name] = dict(ms=ms, plain_ms=plain,
-                                            bound_ms=bound, bound_by=by,
-                                            library_ms=lib)
-            del x, bsr, lib_out, cols, vals
+                                            bound_ms=bd["ms"],
+                                            bound_by=bd["by"], library_ms=lib)
+                # the unfused kernel's split model against a measurement:
+                # the same call with S = 2 forced
+                with unittest.mock.patch.object(
+                        spmm_ops, "k_splits",
+                        lambda r, k, b, f, sms: (2, -(-k // 2))):
+                    forced = spmm_bcsr(cols, vals, x, impl="cuda_unfused")
+                    torch.cuda.synchronize()
+                    ms2 = queued_ms(torch, lambda: spmm_bcsr(
+                        cols, vals, x, impl="cuda_unfused"), 10)
+                note("spmm_bcsr_unfused", (forced - want).abs().max()
+                     .item(), f"{label} S=2 forced", bool(torch.allclose(
+                         forced, want, atol=ATOL, rtol=RTOL)))
+                print(f"spmm_bcsr_unfused {label}: S=2 forced {ms2:.4f} ms "
+                      f"queued (k_splits chose S={splits})",
+                      flush=True)
+            del x, bsr, want, forced, cols, vals
 
         # the gather: the feature table with train batch 0's node ids (pads
         # are -1: zero rows, as the batch's padded feature rows are), then a

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX for hand-written kernels:
-// mbarriers, TMA tile loads, and warpgroup matrix multiplies (wgmma) on
+// mbarriers, TMA tile loads, 1-d bulk copies with an L2 cache policy, and
+// warpgroup matrix multiplies (wgmma) on
 // bf16 operands with f32 accumulators. Each wrapper is one instruction or
 // a short fixed sequence; the instruction strings follow the PTX ISA (and
 // CuTe's wrappers in cute/arch/).
@@ -75,6 +76,29 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// an L2 policy that evicts the lines it is given first: for data that is
+// streamed through once, so that it does not push out what is read again
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// `bytes` contiguous bytes from global memory into shared memory with one
+// 1-d bulk copy (the TMA unit, no tensor map); completion is counted in
+// bytes on `bar`. Both addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar), "l"(policy)
       : "memory");
 }
 

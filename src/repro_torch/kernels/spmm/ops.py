@@ -17,6 +17,11 @@ same function:
   of the reference's ``impl="pallas"`` (``spmm_bcsr_pallas``): K stays a
   grid axis, split into ``S`` ranges whose partial sums a second kernel
   adds in fixed order.
+
+Both stream ``tile_vals`` once through shared memory and multiply only its
+nonzero entries (``csrc/spmm_tile.cuh``), so a NaN or Inf in ``x`` reaches
+only the rows whose nonzero entries read it, as in the reference's
+``segment`` backend; the plain versions multiply every entry densely.
 """
 from __future__ import annotations
 
@@ -37,8 +42,8 @@ KERNEL_UNFUSED = "spmm_bcsr_unfused"
 SOURCE_UNFUSED = "spmm_bcsr_unfused.cu"
 MAX_BLOCK = 128         # largest tile block B the kernels take
 IMPLS = ("cuda", "cuda_unfused", "stream", "reference")
-FEATURE_BLOCK = 64      # output features per thread block in both kernels
-BLOCKS_PER_SM = 2       # resident 256-thread blocks per SM (128 registers)
+FEATURE_BLOCK = 256     # output features per thread block in both kernels
+ROW_GROUP = 8           # rows of a row tile per thread block in both kernels
 
 
 @dataclasses.dataclass
@@ -206,17 +211,31 @@ def _launch_cuda(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
     return out
 
 
-def k_splits(r: int, k: int, f: int, sms: int) -> Tuple[int, int]:
-    """``(S, slots per split)`` for the unfused kernel: the fewest K splits
-    whose ``R · ceil(F/64) · S`` blocks cover two waves of the card's
-    resident blocks (``sms`` · 2), never more splits than slots, and no
-    empty split."""
+def k_splits(r: int, k: int, b: int, f: int, sms: int) -> Tuple[int, int]:
+    """``(S, slots per split)`` for the unfused kernel.
+
+    The kernel is bound by the bytes of ``tile_vals`` (read once, whatever
+    S is); S > 1 adds ``2·(S−1)·R·B·F·4`` bytes of partials (written, then
+    read by the reduction) and buys SMs: ``R·ceil(B/8)·ceil(F/256)·S``
+    blocks, each streaming its slabs through its own ring, keep
+    ``min(1, blocks / sms)`` of the card's SMs pulling from memory. S
+    minimises bytes over that share among the splits with no empty range
+    (the fewest on a tie). Where the blocks already cover the SMs (the
+    main path's 832-1264 blocks), S = 1 and the partial kernel writes the
+    output with no workspace."""
     if k <= 0:
         return 1, 0
-    base = r * -(-f // FEATURE_BLOCK)
-    want = -(-2 * sms * BLOCKS_PER_SM // max(base, 1))
-    s = max(1, min(k, want))
-    per = -(-k // s)
+    base = r * -(-b // ROW_GROUP) * -(-f // FEATURE_BLOCK)
+    vals_bytes, part_bytes = r * k * b * b * 4, r * b * f * 4
+
+    def cost(per: int) -> float:
+        s = -(-k // per)
+        return (vals_bytes + 2 * (s - 1) * part_bytes) / \
+            min(1.0, base * s / sms)
+
+    # beyond ceil(sms / base) splits every SM is busy and bytes only grow
+    pers = {-(-k // s) for s in range(1, min(k, -(-sms // base)) + 1)}
+    per = min(sorted(pers, reverse=True), key=cost)
     return -(-k // per), per
 
 
@@ -232,7 +251,7 @@ def _launch_cuda_unfused(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
     if out.numel() == 0:
         return out
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    s, per = k_splits(r, k, f, sms)
+    s, per = k_splits(r, k, b, f, sms)
     ws = torch.empty((s, r * b, f), dtype=torch.float32, device=dev) \
         if s > 1 else None
     lib = build.load_library(SOURCE_UNFUSED)

@@ -16,7 +16,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
-from repro_torch.kernels.spmm import csr_to_bcsr, spmm_bcsr_ref, spmm_bcsr_sym
+from repro_torch.kernels.spmm import (
+    csr_to_bcsr, spmm_bcsr, spmm_bcsr_ref, spmm_bcsr_sym)
 
 # f32, TF32 off: kernel and plain version differ only in summation order
 ATOL = RTOL = 1e-4
@@ -55,6 +56,125 @@ def test_unfused_kernel_matches_plain_forward_and_backward(dev, block, f):
                                atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(xt.grad, spmm_bcsr_ref(cols, vals, g),
                                atol=ATOL, rtol=RTOL)
+
+
+def _spmm_case(block, f, dev, seed, n=256):
+    """Random symmetric block-CSR on the card, with two more slots in every
+    row tile: an all-zero tile at column tile 1 % C, and, in row tiles 0
+    and 1, a nonzero tile at column tile C and -1, outside x, which the
+    kernels skip. Returns the operands and the tiles the plain version
+    must see (the outside slots zeroed and pointed at tile 0)."""
+    a = sp.random(n, n, density=0.08, random_state=seed, format="csr",
+                  dtype=np.float32)
+    a = (a + a.T).tocsr()
+    bc = csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=block)
+    k = bc.tile_cols.shape[1]
+    bc = bc.with_pad_k(k + 2)
+    cols, vals = bc.tile_cols.copy(), bc.tile_vals.copy()
+    c = bc.num_cols // block
+    cols[:, k] = 1 % c
+    cols[0, k + 1], cols[1 % len(cols), k + 1] = c, -1
+    vals[0, k + 1] = vals[1 % len(cols), k + 1] = 1.0
+    seen_cols, seen_vals = cols.copy(), vals.copy()
+    seen_cols[:2, k + 1], seen_vals[:2, k + 1] = 0, 0.0
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((bc.num_cols, f), device=dev, generator=gen)
+    g = torch.randn((bc.num_rows, f), device=dev, generator=gen)
+    return ([torch.as_tensor(t, device=dev) for t in (cols, vals)], x, g,
+            [torch.as_tensor(t, device=dev) for t in (seen_cols, seen_vals)],
+            a)
+
+
+@pytest.mark.parametrize("impl", ["cuda", "cuda_unfused"])
+@pytest.mark.parametrize("block", [1, 7, 16, 128])
+@pytest.mark.parametrize("f", [40, 256, 300])
+def test_spmm_kernels_match_plain_and_repeat_bitwise(dev, impl, block, f):
+    """Forward and backward (spmm_bcsr_sym) against the plain version, with
+    all-zero slots and column tiles outside x; F = 300 takes two feature
+    blocks, B = 1 and 7 read the slabs without bulk copies; a second call
+    gives the same bits."""
+    (cols, vals), x, g, (sc, sv), _ = _spmm_case(block, f, dev, block + f)
+    name = {"cuda": "spmm_bcsr", "cuda_unfused": "spmm_bcsr_unfused"}[impl]
+    build.reset_launches()
+    xt = x.clone().requires_grad_(True)
+    out = spmm_bcsr_sym(cols, vals, xt, impl=impl)
+    out.backward(g)
+    again = spmm_bcsr(cols, vals, x, impl=impl)
+    torch.cuda.synchronize()
+    assert build.launches[name] == 3
+    torch.testing.assert_close(out, spmm_bcsr_ref(sc, sv, x), atol=ATOL,
+                               rtol=RTOL)
+    torch.testing.assert_close(xt.grad, spmm_bcsr_ref(sc, sv, g), atol=ATOL,
+                               rtol=RTOL)
+    assert torch.equal(again.view(torch.int32), out.view(torch.int32))
+
+
+@pytest.mark.parametrize("impl", ["cuda", "cuda_unfused"])
+@pytest.mark.parametrize("block", [7, 128])
+def test_spmm_kernels_spread_nan_only_through_nonzero_entries(dev, impl,
+                                                              block):
+    """A NaN row of x reaches exactly the outputs of the rows whose nonzero
+    entries read it; every other output matches the plain version on x
+    with that row zeroed."""
+    (cols, vals), x, _g, (sc, sv), a = _spmm_case(block, 40, dev, 5)
+    p = int(np.flatnonzero(np.asarray(a.sum(axis=0)).ravel())[0])
+    readers = torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+    readers[:a.shape[0]] = torch.as_tensor(a[:, p].toarray().ravel() != 0,
+                                           device=dev)
+    xn, xz = x.clone(), x.clone()
+    xn[p], xz[p] = float("nan"), 0.0
+    got = spmm_bcsr(cols, vals, xn, impl=impl)
+    want = spmm_bcsr_ref(sc, sv, xz)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got).all(dim=1), readers)
+    assert not bool(torch.isnan(got[~readers]).any())
+    torch.testing.assert_close(got[~readers], want[~readers], atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("policy", ["skip", "halt"])
+def test_nonfinite_guard_trips_under_bcsr_as_under_segment_on_cpu(dev,
+                                                                  policy):
+    """A NaN feature in batch 1 of 3: on the card under ``backend="bcsr"``
+    (the SpMM kernels multiply only nonzero entries) the trainer's guard
+    halts, or skips the same steps, as the CPU's ``segment`` run does."""
+    from repro_torch.core import IBMBConfig, IBMBPipeline
+    from repro_torch.core.batches import BatchCache
+    from repro_torch.graph.datasets import get_dataset
+    from repro_torch.models.gnn import GNNConfig
+    from repro_torch.train import GNNTrainer, NonFiniteGradError
+    ds = get_dataset("tiny")
+    pipe = IBMBPipeline(ds, IBMBConfig(
+        variant="node", k_per_output=8, max_outputs_per_batch=16,
+        pad_multiple=32, backend="bcsr", tune_blocks=(16, 32)))
+    train, val = pipe.plan("train"), pipe.plan("val", for_inference=True)
+    fields = {k: np.array(v[:3]) for k, v in train.cache.fields.items()}
+    fields["features"][1, 0, 0] = np.nan
+    poisoned = BatchCache.from_fields(fields)
+    cfg = GNNConfig(in_dim=ds.feat_dim, hidden=32, out_dim=ds.num_classes,
+                    num_layers=2, dropout=0.0)
+    runs = {}
+    for backend, where in (("bcsr", dev), ("segment", "cpu")):
+        trainer = GNNTrainer(cfg, backend=backend, nonfinite_policy=policy,
+                             device=where)
+        build.reset_launches()
+        if policy == "halt":
+            with pytest.raises(NonFiniteGradError):
+                trainer.fit(poisoned, val, ds.num_classes, epochs=1,
+                            schedule_mode="none")
+        else:
+            res = trainer.fit(poisoned, val, ds.num_classes, epochs=2,
+                              schedule_mode="none")
+            assert all(np.isfinite(h["train_loss"]) for h in res.history)
+        runs[backend] = (trainer.snapshot()["faults"],
+                         build.launches.get("spmm_bcsr", 0))
+    assert runs["bcsr"][0] == runs["segment"][0]
+    assert runs["bcsr"][1] > 0 and runs["segment"][1] == 0
+    if policy == "halt":
+        assert runs["bcsr"][0]["halts"] == 1
+    else:
+        assert runs["bcsr"][0] == {"nonfinite_steps": 2, "skipped_steps": 2,
+                                   "halts": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

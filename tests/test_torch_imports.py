@@ -16,7 +16,8 @@ _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _PORT = os.path.join(_ROOT, "src", "repro_torch")
 _SCRIPTS = [os.path.join(_ROOT, f) for f in ("chip_smoke.py",
                                              "plan_survey.py",
-                                             "tools/flash_variants.py")]
+                                             "tools/flash_variants.py",
+                                             "tools/spmm_variants.py")]
 
 _PROBE = r"""
 import importlib, importlib.util, json, pkgutil, sys

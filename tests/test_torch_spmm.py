@@ -207,16 +207,135 @@ def test_cuda_unfused_impl_refuses_what_the_kernel_does_not_take(mutate,
     assert build.launches.get("spmm_bcsr_unfused", 0) == 0
 
 
-@pytest.mark.parametrize("r, k, f, sms", [
-    (79, 67, 256, 132), (79, 67, 40, 132), (1, 1, 8, 132), (3, 5, 40, 132),
-    (500, 90, 256, 132), (79, 0, 40, 132)])
-def test_k_splits_cover_two_waves_without_empty_splits(r, k, f, sms):
-    from repro_torch.kernels.spmm.ops import BLOCKS_PER_SM, k_splits
-    s, per = k_splits(r, k, f, sms)
+@pytest.mark.parametrize("r, k, b, f, sms", [
+    (79, 67, 128, 256, 132), (79, 67, 128, 40, 132), (52, 44, 128, 40, 132),
+    (52, 44, 128, 256, 132), (1, 1, 16, 8, 132), (3, 5, 16, 40, 132),
+    (1, 67, 128, 40, 132), (2, 90, 128, 300, 132), (500, 90, 128, 256, 132),
+    (79, 0, 128, 40, 132)])
+def test_k_splits_cover_two_waves_without_empty_splits(r, k, b, f, sms):
+    """The unfused kernel's K split: bound by the bytes of tile_vals, it
+    takes the S whose bytes (values plus 2·(S−1) partials) over the share
+    of SMs its blocks keep busy are least, among the splits with no empty
+    range; S = 1 wherever the blocks cover the SMs (the main path's
+    shapes, arxiv-like train and test batch 0 at F 40 and 256)."""
+    from repro_torch.kernels.spmm.ops import k_splits
+    s, per = k_splits(r, k, b, f, sms)
     assert s >= 1 and s * per >= k
-    if k:
-        assert (s - 1) * per < k                     # no empty split
-        blocks = r * -(-f // 64) * s
-        assert blocks >= 2 * sms * BLOCKS_PER_SM or s == k
-        if s > 1:                                    # the fewest that do
-            assert r * -(-f // 64) * (s - 1) < 2 * sms * BLOCKS_PER_SM
+    if not k:
+        assert (s, per) == (1, 0)
+        return
+    assert (s - 1) * per < k                         # no empty split
+    base = r * -(-b // 8) * -(-f // 256)
+
+    def cost(t):
+        return (r * k * b * b * 4 + 2 * (t - 1) * r * b * f * 4) / \
+            min(1.0, base * t / sms)
+
+    # every split with no empty range, per slots each
+    achievable = {-(-k // p) for p in range(1, k + 1)}
+    assert cost(s) <= min(cost(t) for t in achievable)
+    if base >= sms:
+        assert s == 1
+
+
+# -------------------------------------------------- the kernels' arithmetic
+# Both CUDA kernels (csrc/spmm_tile.cuh) multiply only the nonzero entries
+# of each tile and sum them per output in (k, j) order: slot by slot, and
+# within a slot by ascending column. This plain model of that arithmetic
+# runs here and is held against the JAX package's reference.
+
+def kernel_model(tile_cols, tile_vals, x):
+    """out = A @ x summing, per output, only the nonzero entries in (k, j)
+    order; column tiles outside [0, C) are skipped."""
+    r, k, b, _ = tile_vals.shape
+    c = x.shape[0] // b
+    xt = x.reshape(c, b, -1)
+    acc = torch.zeros((r, b, x.shape[1]), dtype=x.dtype)
+    for s in range(k):
+        col = tile_cols[:, s].long()
+        live = (col >= 0) & (col < c)
+        xs = xt[col.clamp(0, c - 1)]                 # (R, B, F)
+        for j in range(b):
+            v = tile_vals[:, s, :, j]                 # (R, B): column j
+            nz = ((v != 0) & live[:, None])[..., None]
+            acc = torch.where(nz, acc + v[..., None] * xs[:, None, j], acc)
+    return acc.reshape(r * b, -1)
+
+
+@pytest.mark.parametrize("block", [8, 16, 32])
+@pytest.mark.parametrize("f", [40, 128])
+def test_kernel_model_matches_jax_reference(block, f):
+    from repro.kernels.spmm.ref import spmm_bcsr_ref as jax_spmm_bcsr_ref
+    a, x = _case(block, f, seed=3 * block + f)
+    n = a.shape[0]
+    bc = csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=block)
+    xp = np.zeros((bc.num_cols, f), np.float32)
+    xp[:n] = x
+    want = np.asarray(jax_spmm_bcsr_ref(bc.tile_cols, bc.tile_vals, xp,
+                                         bc.tile_cols.shape[0]))
+    got = kernel_model(torch.from_numpy(bc.tile_cols),
+                       torch.from_numpy(bc.tile_vals), torch.from_numpy(xp))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.fixture(scope="module")
+def tiny_plans():
+    from repro_torch.core import IBMBConfig, IBMBPipeline
+    from repro_torch.graph.datasets import get_dataset
+    pipe = IBMBPipeline(get_dataset("tiny"), IBMBConfig(
+        variant="node", k_per_output=8, max_outputs_per_batch=16,
+        pad_multiple=32, backend="bcsr", tune_blocks=(16, 32)))
+    return {"train": pipe.plan("train"),
+            "test": pipe.plan("test", for_inference=True)}
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+def test_kernel_model_matches_jax_reference_on_real_batches(tiny_plans,
+                                                            split):
+    """Every bcsr batch of the tiny dataset's plans, its features as x."""
+    from repro.kernels.spmm.ref import spmm_bcsr_ref as jax_spmm_bcsr_ref
+    fields = tiny_plans[split].cache.fields
+    for bi in range(len(tiny_plans[split])):
+        cols, vals = fields["tile_cols"][bi], fields["tile_vals"][bi]
+        x = fields["features"][bi]
+        assert np.count_nonzero(vals) > 0
+        want = np.asarray(jax_spmm_bcsr_ref(cols, vals, x, cols.shape[0]))
+        got = kernel_model(torch.from_numpy(cols), torch.from_numpy(vals),
+                           torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("where", ["read by an entry", "under padding"])
+def test_kernel_model_spreads_nan_only_through_nonzero_entries(where):
+    """A NaN row of x reaches exactly the output rows whose nonzero entries
+    read it; every other output equals the dense result with that row
+    zeroed. The dense plain version also spreads it through the zeros of
+    every tile, and padding slots (column tile 0), that cover the row."""
+    a, x = _case(16, 8, seed=11)
+    a = a.tolil()
+    a[0, :] = 0                    # x row 0 (column tile 0) is read by no
+    a[:, 0] = 0                    # entry; padding slots point at tile 0
+    a = a.tocsr()
+    a.eliminate_zeros()
+    n = a.shape[0]
+    bc = csr_to_bcsr(a.indptr, a.indices, a.data, n, n, block=16) \
+        .with_pad_k(8)
+    dense = a.toarray()
+    xp = np.zeros((bc.num_cols, 8), np.float32)
+    xp[:n] = x
+    p = int(np.flatnonzero(dense.any(axis=0))[0]) \
+        if where == "read by an entry" else 0
+    readers = np.zeros(bc.num_rows, bool)
+    readers[:n] = dense[:, p] != 0
+    xn, xz = xp.copy(), xp.copy()
+    xn[p], xz[p] = np.nan, 0.0
+    cols, vals = torch.from_numpy(bc.tile_cols), torch.from_numpy(bc.tile_vals)
+    got = kernel_model(cols, vals, torch.from_numpy(xn)).numpy()
+    assert (np.isnan(got).all(axis=1) == readers).all()
+    assert not np.isnan(got[~readers]).any()
+    want = spmm_bcsr_ref(cols, vals, torch.from_numpy(xz)).numpy()
+    np.testing.assert_allclose(got[~readers], want[~readers], atol=ATOL,
+                               rtol=RTOL)
+    dense_nan = np.isnan(spmm_bcsr_ref(cols, vals, torch.from_numpy(xn))
+                         .numpy()).any(axis=1)
+    assert dense_nan.sum() > readers.sum()
