@@ -12,10 +12,12 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               kernel's registers and spills (``ptxas -v``, fatal if it
               spills) and the bulk copies (UBLKCP) in the SASS of every
               instantiation that streams by them (fatal if absent).
-3. kernels-random — both block-CSR SpMM kernels, forward and backward
-              (through ``spmm_bcsr_sym``; B 1-128, F 40/128/256/300, an
-              all-zero slot, column tiles outside x, a NaN x row that
-              reaches only its readers, two calls bitwise equal), and the
+3. kernels-random — both block-CSR SpMM kernels and the fused kernel's
+              pattern mode (``(A != 0) @ x``, GraphSAGE's neighbour sum),
+              forward and backward (through ``spmm_bcsr_sym``; B 1-128, F
+              40/128/256/300, an all-zero slot, column tiles outside x, a
+              NaN x row that reaches only its readers, two calls bitwise
+              equal; in pattern mode a NaN value counted as 1), and the
               row gather (f32 and bf16,
               rows that do and do not take 16-byte vectors, ids outside the
               table) and flash attention (f32 and bf16, causal or not,
@@ -36,7 +38,8 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               the GB/s and share of the per-entry bound, beside the
               per-tile count of the first kernels' bound.
 6. train    — the main path: ``GNNTrainer.fit`` of the paper's ogbn GCN
-              (hidden 256, 3 layers, dropout 0.3, Adam) for 2 epochs on the
+              (``configs/gnn_gcn.CONFIG``: hidden 256, 3 layers, dropout
+              0.3, Adam) for 2 epochs on the
               train Plan under ``backend="bcsr"``; exact SpMM launch count,
               finite losses, parameters moved, one train step on the card
               against the same step on the CPU, and one step's device time
@@ -46,6 +49,30 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               the feature table) through their own entry points.
 8. serve    — ``GNNInferenceEngine`` on the test Plan under
               ``backend="bcsr"``, then ``backend="auto"``.
+8a. sage    — the paper's GraphSAGE (``configs/gnn_sage.CONFIG``: hidden
+              256, 3 layers, dropout 0.3) under a fixed bcsr policy: ``fit``
+              2 epochs with the exact count of pattern-kernel launches (and
+              none of the weighted kernel), one step card against CPU, one
+              step's device time split, the test Plan served (card logits
+              against CPU logits, query p50/p95), and the pattern kernel
+              on train and test batch 0 at F = 128 and 256 against its
+              plain version, timed beside its bound, the weighted kernel
+              and ``sparse_bsr_tensor`` of the binary nonzero tiles @ x.
+8b. gat     — the paper's GAT (``configs/gnn_gat.CONFIG``: hidden 128, 4
+              heads, 3 layers, dropout 0.3) on the segment path: ``fit`` 2
+              epochs with no SpMM launch, one step card against CPU, the
+              test Plan served against the CPU, one step's device time.
+8c. refresh-swap — the GCN serves every test batch under bcsr (filling
+              the LRU), a seeded ``GraphDelta`` (64 feature rows, 32 edge
+              inserts among test nodes) goes through ``pipe.refresh``
+              (timed beside a from-scratch ``plan()``) and
+              ``GNNInferenceEngine.swap``: untouched batches answer
+              bit-identically from the LRU, dirty ones run on the card and
+              match a fresh engine on a from-scratch plan; a second,
+              feature-only refresh confined to one batch's own outputs
+              keeps the other batches in the LRU; a plan with damaged
+              routing is refused and rolled back, and the engine answers
+              bit-identically to before.
 9. flash-real — the flash-attention kernel at the llama3.2-1b prefill
               shape (B=1, 32 heads over 8 kv heads, S=4096, head dim 64,
               causal) in bf16 and in f32 against the plain version, then
@@ -117,6 +144,10 @@ PEAKS = (("H100 PCIe", 51e12, 756e12, 2.0e12),
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "spmm_bcsr": ("src/repro_torch/kernels/csrc/spmm_bcsr.cu",
                   "src/repro/kernels/spmm/fused.py:96"),
+    # the same kernel's pattern mode: the reference runs the fused kernel
+    # on materialised binary tiles (src/repro/models/gnn/ops.py:177-182)
+    "spmm_bcsr_pattern": ("src/repro_torch/kernels/csrc/spmm_bcsr.cu",
+                          "src/repro/kernels/spmm/fused.py:96"),
     "spmm_bcsr_unfused": ("src/repro_torch/kernels/csrc/spmm_bcsr_unfused.cu",
                           "src/repro/kernels/spmm/spmm.py:37"),
     "gather_rows": ("src/repro_torch/kernels/csrc/gather_rows.cu",
@@ -271,6 +302,21 @@ def bsr_of(torch, cols, vals, n_cols):
 
 GNN_KINDS = (("staging", lambda k: "Memcpy HtoD" in k),
              ("spmm_kernel", lambda k: "spmm_bcsr" in k))
+
+
+def is_pattern_kernel(key: str) -> bool:
+    """Whether a profiler key names a pattern-mode instantiation of the
+    fused SpMM kernel (``spmm_bcsr_kernel<T, kBulk, true>``)."""
+    return re.search(r"spmm_bcsr_kernel<\d+, \w+, true>", key) is not None
+
+
+SAGE_KINDS = (("staging", lambda k: "Memcpy HtoD" in k),
+              ("spmm_bcsr_pattern", is_pattern_kernel))
+GAT_KINDS = (("staging", lambda k: "Memcpy HtoD" in k),
+             ("index_add/scatter", lambda k: any(
+                 w in k.lower() for w in ("index", "scatter"))),
+             ("gemm", lambda k: any(w in k.lower() for w in (
+                 "gemm", "nvjet", "xmma", "cutlass", "matmul"))))
 LM_KINDS = (("flash_kernel", lambda k: "flash_fwd" in k),
             ("gemm", lambda k: any(w in k.lower() for w in (
                 "gemm", "nvjet", "xmma", "cutlass", "matmul"))))
@@ -336,8 +382,10 @@ def ptxas_report(log: str):
 def spmm_build_report(build, source):
     """Print each SpMM kernel's registers and spills from its ``ptxas -v``
     report and its bulk copies (UBLKCP) from its SASS; raise if a kernel
-    spills or an instantiation that streams by bulk copies (template
-    argument ``kBulk = true``, ``Lb1E`` in the mangled name) has none."""
+    spills or an instantiation that streams by bulk copies has none (its
+    template arguments open ``<T, kBulk = true``: ``ILi<T>ELb1E`` in the
+    mangled name, whatever follows, as the pattern flag does in
+    ``spmm_bcsr.cu``)."""
     for name, regs, stack, spill_st, spill_ld in ptxas_report(
             build.build_log(source)):
         print(f"ptxas {name}: {regs} registers, {stack} bytes stack, "
@@ -348,7 +396,7 @@ def spmm_build_report(build, source):
         [build.cuda_tool("cuobjdump"), "-sass", build.library_path(source)],
         capture_output=True, text=True, check=True).stdout
     bulk = {name: c for name, c in sass_counts(sass, ("UBLKCP",)).items()
-            if "Lb1E" in name}
+            if re.search(r"ILi\d+ELb1E", name)}
     for name, c in bulk.items():
         print(f"SASS of {name}: {c['UBLKCP']} UBLKCP", flush=True)
     if not bulk or any(c["UBLKCP"] == 0 for c in bulk.values()):
@@ -396,8 +444,8 @@ def main() -> None:
         attention_ref, flash_attention)
     from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
     from repro_torch.kernels.spmm import (
-        csr_to_bcsr, spmm_bcsr, spmm_bcsr_ref, spmm_bcsr_stream,
-        spmm_bcsr_sym)
+        binary_tiles, csr_to_bcsr, spmm_bcsr, spmm_bcsr_ref,
+        spmm_bcsr_stream, spmm_bcsr_sym)
 
     with phase("build"):
         t0 = time.perf_counter()
@@ -407,7 +455,7 @@ def main() -> None:
             print(f"{src} -> {path}", flush=True)
         print(f"built {len(paths)} sources in parallel in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        for src, _ in KERNELS.values():
+        for src in sorted({src for src, _ in KERNELS.values()}):
             if "spmm" in src:
                 spmm_build_report(build, os.path.basename(src))
 
@@ -489,6 +537,82 @@ def main() -> None:
                  bool(torch.allclose(got[rest], want_z[rest], atol=ATOL,
                                      rtol=RTOL)))
 
+    def check_pattern(cols, vals, x, label, backward=True):
+        """The pattern kernel against the plain version on the binary
+        tiles, forward and (through ``spmm_bcsr_sym``) backward."""
+        bins = binary_tiles(vals, torch.float32)
+        got = spmm_bcsr(cols, vals, x, pattern=True)
+        want = spmm_bcsr_ref(cols, bins, x)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        note("spmm_bcsr_pattern", err, label, bool(torch.allclose(
+            got, want, atol=ATOL, rtol=RTOL) and torch.isfinite(got).all()))
+        if not backward:
+            return
+        xg = x.clone().requires_grad_(True)
+        g = torch.randn(got.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(7))
+        spmm_bcsr_sym(cols, vals, xg, pattern=True).backward(g)
+        want = spmm_bcsr_ref(cols, bins, g)
+        torch.cuda.synchronize()
+        note("spmm_bcsr_pattern", (xg.grad - want).abs().max().item(),
+             label + " backward", bool(torch.allclose(
+                 xg.grad, want, atol=ATOL, rtol=RTOL)))
+
+    def check_pattern_edges(bc, f, label):
+        """The pattern kernel on the edge cases of ``check_spmm_edges``
+        (an all-zero slot, column tiles outside x, two calls bitwise equal,
+        a NaN x row reaching only its readers), and a NaN tile value,
+        which is not zero and so counts as 1."""
+        b, k = bc.block, bc.tile_cols.shape[1]
+        padded = bc.with_pad_k(k + 2)
+        cols, vals = padded.tile_cols.copy(), padded.tile_vals.copy()
+        c = padded.num_cols // b
+        cols[:, k] = 1 % c
+        cols[0, k + 1], cols[-1, k + 1] = c, -1
+        vals[0, k + 1] = vals[-1, k + 1] = 1.0
+        seen_c, seen_v = cols.copy(), vals.copy()
+        seen_c[[0, -1], k + 1], seen_v[[0, -1], k + 1] = 0, 0.0
+        cols, vals, seen_c, seen_v = (torch.as_tensor(t, device=dev) for t in
+                                      (cols, vals, seen_c, seen_v))
+        seen_b = binary_tiles(seen_v, torch.float32)
+        x = torch.as_tensor(rng.normal(size=(padded.num_cols, f))
+                            .astype(np.float32), device=dev)
+        got, again = (spmm_bcsr(cols, vals, x, pattern=True)
+                      for _ in range(2))
+        want = spmm_bcsr_ref(seen_c, seen_b, x)
+        torch.cuda.synchronize()
+        note("spmm_bcsr_pattern", (got - want).abs().max().item(),
+             f"{label} all-zero slot, column tiles outside x, two calls "
+             f"bitwise equal", bool(torch.allclose(
+                 got, want, atol=ATOL, rtol=RTOL)) and
+             torch.equal(got.view(torch.int32), again.view(torch.int32)))
+        r0, k0, _i, j0 = (int(v) for v in (seen_v != 0).nonzero()[0])
+        p = int(seen_c[r0, k0]) * b + j0
+        readers = ((seen_v[..., p % b] != 0) &
+                   (seen_c == p // b)[..., None]).any(dim=1).reshape(-1)
+        xn, xz = x.clone(), x.clone()
+        xn[p], xz[p] = float("nan"), 0.0
+        got = spmm_bcsr(cols, vals, xn, pattern=True)
+        want_z = spmm_bcsr_ref(seen_c, seen_b, xz)
+        torch.cuda.synchronize()
+        rest = ~readers
+        note("spmm_bcsr_pattern", (got[rest] - want_z[rest]).abs().max()
+             .item(), f"{label} NaN x row {p} ({int(readers.sum())} "
+                      f"readers)",
+             torch.equal(torch.isnan(got).all(dim=1), readers) and
+             not bool(torch.isnan(got[rest]).any()) and
+             bool(torch.allclose(got[rest], want_z[rest], atol=ATOL,
+                                 rtol=RTOL)))
+        nan_v = vals.clone()
+        nan_v[r0, k0, _i, j0] = float("nan")
+        got = spmm_bcsr(cols, nan_v, x, pattern=True)
+        torch.cuda.synchronize()
+        note("spmm_bcsr_pattern", (got - want).abs().max().item(),
+             f"{label} a NaN value counted as 1",
+             bool(torch.isfinite(got).all()) and
+             torch.equal(got.view(torch.int32), again.view(torch.int32)))
+
     def check_gather(table, idx, label):
         got = gather_rows(table, idx)
         ok = (idx >= 0) & (idx < table.shape[0])
@@ -530,8 +654,11 @@ def main() -> None:
                                     .astype(np.float32), device=dev)
                 check_spmm(cols, vals, x, f"random B={b} K={cols.shape[1]} "
                                           f"F={f}")
+                check_pattern(cols, vals, x, f"random B={b} "
+                                             f"K={cols.shape[1]} F={f}")
             for f in (40, 300):
                 check_spmm_edges(bc, f, f"random B={b} F={f}")
+                check_pattern_edges(bc, f, f"random B={b} F={f}")
         for dtype in (torch.float32, torch.bfloat16):
             for f in (100, 128, 256, 37):       # F=37: no 16-byte vectors
                 table = torch.as_tensor(rng.normal(size=(5000, f)),
@@ -690,26 +817,29 @@ def main() -> None:
 
     from repro_torch.data.loader import PrefetchLoader, consume, stage_batch
     from repro_torch.device import stage
-    from repro_torch.models.gnn import GNNConfig
+    from repro_torch.configs import gnn_gcn
     from repro_torch.optim import tree_leaves, tree_map
     from repro_torch.train import GNNTrainer
 
-    cfg = GNNConfig(kind="gcn", hidden=256, num_layers=3, dropout=0.3,
-                    in_dim=ds.feat_dim, out_dim=ds.num_classes)
+    cfg = dataclasses.replace(gnn_gcn.CONFIG, in_dim=ds.feat_dim,
+                              out_dim=ds.num_classes)
     launches = {}
-    with phase("train"):
-        train_plan, val_plan = plans["train"], plans["val"]
-        trainer = GNNTrainer(cfg, optimizer="adam", lr=1e-3, backend="bcsr")
+    train_plan, val_plan = plans["train"], plans["val"]
+    from torch.profiler import ProfilerActivity, profile
+
+    def fit_two_epochs(cfg_k, backend):
+        """``GNNTrainer.fit`` for 2 epochs on the train Plan with the
+        launch counts reset first: finite history, parameters moved.
+        Returns the trainer, the result and the launch counts."""
+        trainer = GNNTrainer(cfg_k, optimizer="adam", lr=1e-3,
+                             backend=backend)
         init = [t.clone() for t in tree_leaves(trainer.init_params())]
         build.reset_launches()
         t0 = time.perf_counter()
         result = trainer.fit(train_plan, val_plan, ds.num_classes, epochs=2)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        launches["spmm_bcsr"] = build.launches.get("spmm_bcsr", 0)
-        steps = len(train_plan) * len(result.history)
-        want = 2 * cfg.num_layers * steps + \
-            cfg.num_layers * len(val_plan) * len(result.history)
+        counts = {k: v for k, v in build.launches.items() if v}
         prev = 0.0
         for h in result.history:
             print(f"epoch {h['epoch']}: train_loss {h['train_loss']:.6f} "
@@ -717,14 +847,11 @@ def main() -> None:
                   f"lr {h['lr']:.2e}, {h['time'] - prev:.3f} s with "
                   f"evaluation", flush=True)
             prev = h["time"]
-        print(f"fit: {steps} train steps, {len(val_plan)} val batches x "
-              f"{len(result.history)} evaluations in {fit_s:.3f} s; train "
-              f"time per epoch {result.time_per_epoch:.3f} s; spmm_bcsr "
-              f"launches {launches['spmm_bcsr']} (want {want} = 6 x {steps} "
-              f"+ 3 x {len(val_plan)} x {len(result.history)})", flush=True)
-        if launches["spmm_bcsr"] != want:
-            raise AssertionError(f"spmm_bcsr launched "
-                                 f"{launches['spmm_bcsr']} times, want {want}")
+        print(f"fit: {len(train_plan) * len(result.history)} train steps, "
+              f"{len(val_plan)} val batches x {len(result.history)} "
+              f"evaluations in {fit_s:.3f} s; train time per epoch "
+              f"{result.time_per_epoch:.3f} s; launches {counts}",
+              flush=True)
         for h in result.history:
             if not all(np.isfinite(h[k]) for k in ("train_loss", "val_loss",
                                                     "val_acc")):
@@ -736,18 +863,19 @@ def main() -> None:
             raise AssertionError(f"parameters did not move finitely "
                                  f"(max change {moved})")
         print(f"parameters moved by up to {moved:.3e}", flush=True)
+        return trainer, result, counts
 
-        # one train step on the card against the same step on the CPU, at
-        # dropout 0, from the same parameters and batch
-        cfg0 = dataclasses.replace(cfg, dropout=0.0)
-        host = train_plan.cache[0]
-        got_l, got_g = GNNTrainer(cfg0, backend="bcsr")._steps_for(
-            "bcsr", 0)["grad"](result.params, stage(host, dev), None)
-        cpu_params = {"layers": [{k: v.cpu() for k, v in layer.items()}
-                                 for layer in result.params["layers"]]}
-        want_l, want_g = GNNTrainer(cfg0, backend="bcsr", device="cpu") \
-            ._steps_for("bcsr", 0)["grad"](cpu_params, stage(host, "cpu"),
-                                           None)
+    def step_vs_cpu(cfg_k, backend, params, host):
+        """One train step on the card against the same step on the CPU, at
+        dropout 0, from the same parameters and batch: loss and gradients
+        within ATOL."""
+        cfg0 = dataclasses.replace(cfg_k, dropout=0.0)
+        got_l, got_g = GNNTrainer(cfg0, backend=backend)._steps_for(
+            backend, 0)["grad"](params, stage(host, dev), None)
+        want_l, want_g = GNNTrainer(cfg0, backend=backend, device="cpu") \
+            ._steps_for(backend, 0)["grad"](
+                tree_map(lambda t: t.cpu(), params), stage(host, "cpu"),
+                None)
         worst = abs(got_l.item() - want_l.item())
         for a, b in zip(tree_leaves(got_g), tree_leaves(want_g)):
             worst = max(worst, (a.cpu() - b).abs().max().item())
@@ -757,20 +885,21 @@ def main() -> None:
               f" vs {want_l.item():.6f}, loss and gradients max_abs_err "
               f"{worst:.3e}", flush=True)
 
-        # one train step's device time: staging on the side stream, then
-        # the step on the current stream, under the profiler
-        from torch.profiler import ProfilerActivity, profile
-        steps_fn = trainer._steps_for("bcsr", 0)["train"]
-        opt_state = trainer.opt.init(result.params)
+    def profile_step(trainer, backend, params, host, kinds, rows=12):
+        """One train step's device time: staging on the side stream, then
+        the step on the current stream, under the profiler, split by
+        ``kinds``. Returns the step function and the optimizer state."""
+        steps_fn = trainer._steps_for(backend, 0)["train"]
+        opt_state = trainer.opt.init(params)
         side = torch.cuda.Stream(dev)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             batch = consume(stage_batch(host, dev, side), dev)
-            steps_fn(result.params, opt_state, batch, 1e-3,
+            steps_fn(params, opt_state, batch, 1e-3,
                      torch.Generator(dev).manual_seed(0))
             torch.cuda.synchronize()
-        split = device_time_split(prof, torch)
+        split = device_time_split(prof, torch, kinds)
         total = sum(split.values())
         if total <= 0:
             raise AssertionError("the profiler recorded no device time")
@@ -779,8 +908,25 @@ def main() -> None:
             for k, v in split.items()) + f"; total {total / 1e3:.3f} ms",
             flush=True)
         print(prof.key_averages().table(sort_by="cuda_time_total",
-                                        row_limit=12), flush=True)
-        del batch
+                                        row_limit=rows), flush=True)
+        return steps_fn, opt_state
+
+    with phase("train"):
+        trainer, result, counts = fit_two_epochs(cfg, "bcsr")
+        launches["spmm_bcsr"] = counts.get("spmm_bcsr", 0)
+        steps = len(train_plan) * len(result.history)
+        want = 2 * cfg.num_layers * steps + \
+            cfg.num_layers * len(val_plan) * len(result.history)
+        print(f"spmm_bcsr launches {launches['spmm_bcsr']} (want {want} = "
+              f"6 x {steps} + 3 x {len(val_plan)} x "
+              f"{len(result.history)})", flush=True)
+        if launches["spmm_bcsr"] != want:
+            raise AssertionError(f"spmm_bcsr launched "
+                                 f"{launches['spmm_bcsr']} times, want {want}")
+        host = train_plan.cache[0]
+        step_vs_cpu(cfg, "bcsr", result.params, host)
+        steps_fn, opt_state = profile_step(trainer, "bcsr", result.params,
+                                           host, GNN_KINDS)
 
         # one epoch of train steps through the prefetch loader (no
         # evaluation): wall time per step, then the device's activity in
@@ -916,7 +1062,6 @@ def main() -> None:
               f"{err:.3e}", flush=True)
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
-        from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             eng.query(b0)
@@ -940,6 +1085,264 @@ def main() -> None:
               f"8 queries vs bcsr max_abs_err {worst:.3e}, spmm_bcsr "
               f"launches {build.launches.get('spmm_bcsr', 0) - before}",
               flush=True)
+
+    from repro_torch.configs import gnn_gat, gnn_sage
+    from repro_torch.core import GraphDelta, check_routing
+    from repro_torch.models.gnn import BackendPolicy
+
+    def serve_vs_cpu(cfg_k, backend, params, what):
+        """Cold queries through ``GNNInferenceEngine`` on the test Plan
+        (p50/p95 on the host clock), then every test node on the card
+        against the same engine on the CPU."""
+        plan = plans["test"]
+        eng = GNNInferenceEngine(plan, cfg_k, params, backend=backend,
+                                 cache_batches=0)
+        lat = []
+        for q in queries[:32]:
+            t0 = time.perf_counter()
+            a = eng.query(q)
+            lat.append(time.perf_counter() - t0)
+            if a.shape != (16, cfg_k.out_dim) or not np.isfinite(a).all():
+                raise AssertionError(f"bad logits: shape {a.shape}")
+        p50, p95 = np.percentile(np.array(lat) * 1e3, [50, 95])
+        ids = plan.routing.node_ids
+        got = eng.query(ids)
+        want = GNNInferenceEngine(plan, cfg_k, params, backend=backend,
+                                  cache_batches=0, device="cpu").query(ids)
+        err = float(np.abs(got - want).max())
+        print(f"{what} serving: {len(lat)} queries of 16 ids, latency p50 "
+              f"{p50:.2f} ms p95 {p95:.2f} ms (host clock); all "
+              f"{len(ids)} test nodes, card vs CPU engine max_abs_err "
+              f"{err:.3e}", flush=True)
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+    with phase("sage"):
+        cfg_s = dataclasses.replace(gnn_sage.CONFIG, in_dim=ds.feat_dim,
+                                    out_dim=ds.num_classes)
+        bcsr = BackendPolicy.fixed("bcsr")
+        trainer, result, counts = fit_two_epochs(cfg_s, bcsr)
+        launches["spmm_bcsr_pattern"] = counts.get("spmm_bcsr_pattern", 0)
+        # a train step aggregates once per layer forward and once per layer
+        # backward but the first (its input, the raw features, needs no
+        # gradient); an evaluated val batch once per layer
+        n_l, evals = cfg_s.num_layers, len(result.history)
+        steps = len(train_plan) * evals
+        want = (2 * n_l - 1) * steps + n_l * len(val_plan) * evals
+        print(f"spmm_bcsr_pattern launches {launches['spmm_bcsr_pattern']} "
+              f"(want {want} = {2 * n_l - 1} x {steps} + {n_l} x "
+              f"{len(val_plan)} x {evals}); other SpMM launches "
+              f"{ {k: v for k, v in counts.items() if k != 'spmm_bcsr_pattern'} }",
+              flush=True)
+        if launches["spmm_bcsr_pattern"] != want or len(counts) != 1:
+            raise AssertionError(f"SAGE fit launched {counts}, want "
+                                 f"spmm_bcsr_pattern {want} and nothing "
+                                 f"else")
+        host = train_plan.cache[0]
+        step_vs_cpu(cfg_s, "bcsr", result.params, host)
+        profile_step(trainer, "bcsr", result.params, host, SAGE_KINDS, 8)
+        serve_vs_cpu(cfg_s, bcsr, result.params, "SAGE bcsr")
+
+        # the pattern kernel at the shapes SAGE gives it: F = 128 (layer 0)
+        # and 256 (layers 1-2), against its plain version, timed queued in
+        # turns with the weighted kernel on the same tiles and x
+        for split in ("train", "test"):
+            fields = plans[split].cache.fields
+            cols = torch.as_tensor(fields["tile_cols"][0], device=dev)
+            vals = torch.as_tensor(fields["tile_vals"][0], device=dev)
+            n_cols = vals.shape[0] * vals.shape[3]
+            bins = binary_tiles(vals, torch.float32)
+            bsr = bsr_of(torch, cols, bins, n_cols)
+            for f in (128, 256):
+                x = torch.as_tensor(rng.normal(size=(n_cols, f))
+                                    .astype(np.float32), device=dev)
+                label = f"arxiv-like {split} batch 0 F={f}"
+                check_pattern(cols, vals, x, label)
+                bd = spmm_bound_ms(cols, vals, x, peak_flops, peak_bw)
+                plain = queued_ms(torch, lambda: spmm_bcsr_ref(
+                    cols, binary_tiles(vals, torch.float32), x), 5)
+                lib_err = (bsr @ x - spmm_bcsr_ref(cols, bins, x)).abs().max()
+                lib = queued_ms(torch, lambda: bsr @ x, 10)
+                turns = [queued_ms(torch, lambda p=p: spmm_bcsr(
+                    cols, vals, x, pattern=p), 10)
+                    for p in (True, False, False, True)]
+                ms, gcn_ms = (turns[0] + turns[3]) / 2, (turns[1] +
+                                                         turns[2]) / 2
+                print(f"spmm_bcsr_pattern {label} (R={vals.shape[0]} "
+                      f"K={vals.shape[1]}): kernel {ms:.4f} ms (queued; "
+                      f"turns {turns[0]:.4f}, {turns[3]:.4f}), the weighted "
+                      f"kernel on the same tiles {gcn_ms:.4f} ms (turns "
+                      f"{turns[1]:.4f}, {turns[2]:.4f}; pattern/weighted "
+                      f"{ms / gcn_ms:.3f}), plain (spmm_bcsr_ref on the "
+                      f"binary tiles, their making included) {plain:.4f} "
+                      f"ms, library (sparse_bsr_tensor of the binary "
+                      f"nonzero tiles @ x, err {lib_err.item():.2e}) "
+                      f"{lib:.4f} ms; bound {bd['ms']:.4f} ms by "
+                      f"{bd['by']} ({bd['nnz']} nonzero entries, "
+                      f"{bd['nbytes'] / 1e6:.1f} MB moved); kernel at "
+                      f"{bd['nbytes'] / ms / 1e6:.1f} GB/s, "
+                      f"{bd['bytes_ms'] / ms * 100:.1f}% of the bytes bound",
+                      flush=True)
+                if split == "train" and f == 256:
+                    record["spmm_bcsr_pattern"] = dict(
+                        ms=ms, plain_ms=plain, bound_ms=bd["ms"],
+                        bound_by=bd["by"], library_ms=lib)
+            del cols, vals, bins, bsr, x
+
+    with phase("gat"):
+        cfg_g = dataclasses.replace(gnn_gat.CONFIG, in_dim=ds.feat_dim,
+                                    out_dim=ds.num_classes)
+        segment = BackendPolicy.fixed("segment")
+        trainer, result, counts = fit_two_epochs(cfg_g, segment)
+        if counts:
+            raise AssertionError(f"the GAT fit launched kernels {counts}: "
+                                 f"GAT aggregates on the segment path")
+        print("GAT fit: 0 SpMM launches", flush=True)
+        host = train_plan.cache[0]
+        step_vs_cpu(cfg_g, "segment", result.params, host)
+        profile_step(trainer, "segment", result.params, host, GAT_KINDS, 8)
+        serve_vs_cpu(cfg_g, segment, result.params, "GAT segment")
+
+    with phase("refresh-swap"):
+        plan = plans["test"]
+        params = init_gnn(cfg, torch.Generator().manual_seed(0), device=dev)
+        eng = GNNInferenceEngine(plan, cfg, params, backend="bcsr",
+                                 cache_batches=len(plan))
+
+        def answers(p):
+            """Every batch's output ids and logits, through ``eng``."""
+            return {bi: (q, eng.query(q)) for bi in range(len(p))
+                    for q in [p.routing.node_ids[p.routing.batch == bi]]}
+
+        def same_bits(a, b):
+            return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+        served = answers(plan)                 # fills the LRU
+        if eng.stats["batch_runs"] != len(plan):
+            raise AssertionError(f"{eng.stats['batch_runs']} batch runs "
+                                 f"for a {len(plan)}-batch plan")
+        # a seeded delta: 64 replacement feature rows and 32 undirected
+        # edge inserts among test nodes
+        drng = np.random.default_rng(29)
+        test_nodes = pipe.ds.splits["test"]
+        feat_nodes = np.sort(drng.choice(test_nodes, 64, replace=False))
+        pairs = set()
+        while len(pairs) < 32:
+            u, v = (int(t) for t in drng.choice(test_nodes, 2,
+                                                replace=False))
+            if not np.isin(v, pipe.ds.graph.neighbors(u)):
+                pairs.add((min(u, v), max(u, v)))
+        delta = GraphDelta(
+            feat_nodes=feat_nodes,
+            feat_values=drng.normal(size=(64, ds.feat_dim)).astype(
+                np.float32),
+            edge_inserts=np.array(sorted(pairs), np.int64))
+        t0 = time.perf_counter()
+        child, audit = pipe.refresh(plan, delta)
+        refresh_s = time.perf_counter() - t0
+        check_routing(child)
+        t0 = time.perf_counter()
+        scratch = IBMBPipeline(pipe.ds, pipe.cfg).plan("test",
+                                                       for_inference=True)
+        scratch_s = time.perf_counter() - t0
+        if scratch.fingerprint != child.fingerprint:
+            raise AssertionError("refreshed and from-scratch fingerprints "
+                                 "differ")
+        print(f"refresh {delta.summary()}: {audit.summary()} (rebuilt "
+              f"{audit.rebuilt.tolist()}, patched {audit.patched.tolist()}, "
+              f"untouched {audit.untouched.tolist()}); {refresh_s:.3f} s on "
+              f"the host against {scratch_s:.3f} s for a from-scratch "
+              f"plan() (a fresh pipeline, its PPR included); stages "
+              f"{ {k: round(v, 3) for k, v in audit.timings.items()} }",
+              flush=True)
+
+        def swap_and_check(new_plan, new_audit, before, fresh_plan):
+            """Swap, then: untouched batches answer bit-identically from
+            the LRU with no batch run; dirty ones run on the card and match
+            a fresh engine on ``fresh_plan`` within ATOL."""
+            result = eng.swap(new_plan, new_audit)
+            runs = eng.stats["batch_runs"]
+            for bi in new_audit.untouched:
+                q, want = before[int(bi)]
+                if not same_bits(eng.query(q), want):
+                    raise AssertionError(f"untouched batch {bi} changed")
+            if eng.stats["batch_runs"] != runs:
+                raise AssertionError("an untouched batch ran again")
+            fresh = GNNInferenceEngine(fresh_plan, cfg, params,
+                                       backend="bcsr", cache_batches=0)
+            build.reset_launches()
+            worst = 0.0
+            for bi in new_audit.dirty:
+                q = new_plan.routing.node_ids[new_plan.routing.batch == bi]
+                got, want = eng.query(q), fresh.query(q)
+                worst = max(worst, float(np.abs(got - want).max()))
+                np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+            torch.cuda.synchronize()
+            ran = eng.stats["batch_runs"] - runs
+            if ran != len(new_audit.dirty) or build.launches.get(
+                    "spmm_bcsr", 0) != 2 * cfg.num_layers * ran:
+                raise AssertionError(f"{ran} batch runs and "
+                                     f"{dict(build.launches)} launches for "
+                                     f"{len(new_audit.dirty)} dirty batches")
+            print(f"swap v{eng.swap_audit[-1]['from_version']} -> "
+                  f"v{eng.swap_audit[-1]['to_version']}: {result}; "
+                  f"{len(new_audit.untouched)} untouched batches "
+                  f"bit-identical from the LRU, {ran} dirty batches run on "
+                  f"the card vs a fresh engine on a from-scratch plan "
+                  f"max_abs_err {worst:.3e}; spmm_bcsr launches "
+                  f"{build.launches.get('spmm_bcsr', 0)}", flush=True)
+
+        swap_and_check(child, audit, served, scratch)
+        if eng.stats["swap_count"] != 1 or not {0, 1} <= set(
+                eng.stats["versions"]):
+            raise AssertionError(f"stats after the swap: {eng.stats}")
+        # a feature-only refresh confined to one batch's own outputs (ids no
+        # other batch holds): exactly that batch is patched, the others
+        # stay in the LRU
+        served = answers(child)
+        sets = [set(n[n >= 0].tolist()) for n in child.node_ids]
+        others = np.fromiter(set().union(*sets[1:]), np.int64)
+        own = np.setdiff1d(served[0][0], others)
+        nodes = np.sort(drng.choice(own, min(64, len(own)), replace=False))
+        delta2 = GraphDelta(feat_nodes=nodes, feat_values=drng.normal(
+            size=(len(nodes), ds.feat_dim)).astype(np.float32))
+        grand, audit2 = pipe.refresh(child, delta2)
+        print(f"refresh {delta2.summary()}: {audit2.summary()}", flush=True)
+        if audit2.dirty.tolist() != [0] or len(audit2.untouched) != \
+                len(grand) - 1:
+            raise AssertionError(f"a delta confined to batch 0 dirtied "
+                                 f"{audit2.dirty.tolist()}")
+        swap_and_check(grand, audit2, served, IBMBPipeline(
+            pipe.ds, pipe.cfg).plan("test", for_inference=True))
+        print(f"engine stats: "
+              f"{json.dumps({k: v for k, v in eng.stats.items()})}",
+              flush=True)
+
+        # a plan whose routing was damaged by hand: refused, rolled back,
+        # and the engine answers bit-identically to before
+        served = answers(grand)
+        row = np.array(grand.routing.row)
+        row[0] = (row[0] + 1) % grand.cache.fields["output_idx"].shape[1]
+        damaged = dataclasses.replace(grand, routing=dataclasses.replace(
+            grand.routing, row=row))
+        try:
+            eng.swap(damaged)
+        except ValueError as e:
+            print(f"damaged routing refused: {e}", flush=True)
+        else:
+            raise AssertionError("a plan with damaged routing was swapped in")
+        if eng.stats["swap_rollbacks"] != 1 or eng.swap_audit[-1]["ok"] \
+                or eng.plan is not grand:
+            raise AssertionError(f"no rollback: {eng.stats}, "
+                                 f"{eng.swap_audit[-1]}")
+        for bi, (q, want) in served.items():
+            if not same_bits(eng.query(q), want):
+                raise AssertionError(f"batch {bi} changed after a refused "
+                                     f"swap")
+        print(f"after the refused swap: {len(served)} batches "
+              f"bit-identical, swap_rollbacks "
+              f"{eng.stats['swap_rollbacks']}, audit {eng.swap_audit[-1]}",
+              flush=True)
+        del eng, params
 
     with phase("flash-real"):
         # the llama3.2-1b prefill (src/repro/configs/llama3_2_1b.py): B=1,
@@ -1057,7 +1460,6 @@ def main() -> None:
         print(f"one prefill (lm_forward + head_logits, CUDA events, mean "
               f"of 3): {ms:.3f} ms, {PREFILL_S / ms * 1e3:.0f} tokens/s",
               flush=True)
-        from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             last_logits(lm_cfg, params, toks)

@@ -1,4 +1,4 @@
-"""Carry parameters between the JAX package and the port: the GCN's
+"""Carry parameters between the JAX package and the port: the GNNs'
 (``params_from_jax``) and the LM stack's (``lm_params_from_jax``)."""
 from __future__ import annotations
 
@@ -11,10 +11,13 @@ from repro_torch.device import DeviceSpec, resolve_device, to_tensor
 
 
 def params_from_jax(tree: Dict, device: DeviceSpec = None) -> Dict:
-    """The port's GCN parameters from a JAX parameter pytree
-    ``{"layers": [{"w", "b", "ln_scale", "ln_bias"}, ...]}`` (any array
-    type numpy can read). The layout is kept: ``w`` stays ``(d_in, d_out)``
-    and is applied as ``h @ w``, so nothing is transposed."""
+    """The port's GNN parameters from a JAX parameter pytree
+    ``{"layers": [{...}, ...]}`` of any of the three kinds (GCN's ``w``,
+    ``b``; SAGE's ``w_self``, ``w_nbr``, ``b``; GAT's ``w``, ``a_src``,
+    ``a_dst``, ``b``; ``ln_scale``, ``ln_bias`` on hidden layers), any
+    array type numpy can read. Every key of a layer dict is carried and
+    the layout is kept: weights stay ``(d_in, d_out)`` and are applied as
+    ``h @ w``, so nothing is transposed."""
     dev = resolve_device(device)
     return {"layers": [
         {k: to_tensor(np.asarray(v), dev) for k, v in layer.items()}

@@ -17,6 +17,7 @@ from repro_torch.core.batches import PaddedBatch, build_batches, BatchCache
 from repro_torch.core.plan import (
     Plan, RoutingIndex, PlanFormatError, plan_fingerprint, check_routing,
 )
+from repro_torch.core.update import GraphDelta, PlanDelta, PlanUpdater
 from repro_torch.core.scheduling import (
     label_distributions, pairwise_kl_distance, tsp_max_order, weighted_sampling_order,
 )
@@ -32,6 +33,7 @@ __all__ = [
     "PaddedBatch", "build_batches", "BatchCache",
     "Plan", "RoutingIndex", "PlanFormatError", "plan_fingerprint",
     "check_routing",
+    "GraphDelta", "PlanDelta", "PlanUpdater",
     "label_distributions", "pairwise_kl_distance", "tsp_max_order", "weighted_sampling_order",
     "IBMBPipeline", "IBMBConfig",
 ]

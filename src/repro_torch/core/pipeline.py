@@ -13,10 +13,14 @@ fingerprint, and the routing index that request-level serving
 (``repro_torch.serve.gnn_engine``) uses. ``preprocess()`` remains the lower-level
 stage returning the raw ``List[PaddedBatch]``.
 
-The port leaves out ``refresh`` (the dynamic-graph entry point, which
-needs ``core/update.py``) and the out-of-core build (``ooc``); both are
-queued in ROADMAP.md. Everything else matches ``repro.core.pipeline``
-line for line, so the two packages build bitwise-identical plans.
+``refresh(plan, delta)`` is the dynamic-graph entry point (DESIGN.md §10):
+it advances the pipeline to the post-delta dataset and emits the next plan
+in the version chain, rebuilding only the batches the delta actually
+dirtied (incremental PPR push decides) plus a ``PlanDelta`` audit record.
+
+The port leaves out the out-of-core build (``ooc``), queued in
+ROADMAP.md. Everything else matches ``repro.core.pipeline`` line for
+line, so the two packages build and refresh bitwise-identical plans.
 
 Variants (paper Sec. 5 setup):
 * "node"  — node-wise IBMB: PPR-distance partitioning + node-wise top-k aux.
@@ -40,6 +44,7 @@ from repro_torch.core import autotune
 from repro_torch.core.batches import PaddedBatch, build_batches, BatchCache
 from repro_torch.core.plan import Plan, encode_backends, plan_fingerprint
 from repro_torch.core.scheduling import make_schedule
+from repro_torch.core.update import GraphDelta, PlanDelta, PlanUpdater
 
 
 @dataclasses.dataclass
@@ -147,8 +152,8 @@ class IBMBPipeline:
     def plan(self, split: str, for_inference: bool = False) -> Plan:
         """Run preprocessing end to end and freeze the result (DESIGN.md §8):
         batches + cache + schedule + routing index + fingerprint + timings.
-        The returned Plan is what ``GNNInferenceEngine`` and ``Plan.save``
-        consume."""
+        The returned Plan is what ``GNNTrainer.fit/evaluate``,
+        ``GNNInferenceEngine`` and ``Plan.save`` consume."""
         mode = "inference" if for_inference else "train"
         batches = self.preprocess(split, for_inference=for_inference)
         # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
@@ -187,6 +192,50 @@ class IBMBPipeline:
         match THIS pipeline's (config, dataset, split, mode)."""
         return Plan.load(
             path, expect_fingerprint=self.fingerprint(split, for_inference))
+
+    # -- dynamic graphs: versioned plan refresh (DESIGN.md §10) -------------
+    def refresh(self, plan: Plan, delta: GraphDelta):
+        """Apply ``delta`` to this pipeline's dataset and emit the next plan
+        in the version chain: ``(child_plan, plan_delta)``.
+
+        The pipeline ADVANCES to the post-delta graph (subsequent ``plan``/
+        ``fingerprint`` calls see it; the plan's split keeps a warm PPR
+        cache spliced by the incremental push, other splits' caches are
+        dropped as stale). ``plan`` must belong to this pipeline's
+        pre-delta state — a foreign or stale artifact is refused exactly
+        like ``load_plan`` would refuse it. The child plan's logits are
+        numerically identical to a from-scratch ``plan()`` on the
+        post-delta graph; only the dirty subset of batches is rebuilt
+        (``plan_delta`` records which, for ``GNNInferenceEngine.swap``).
+        """
+        split, mode = plan.meta.get("split"), plan.meta.get("mode", "train")
+        if split not in self.ds.splits:
+            raise ValueError(f"plan names unknown split {split!r}")
+        for_inference = mode == "inference"
+        expect = self.fingerprint(split, for_inference)
+        if plan.fingerprint != expect:
+            raise ValueError(
+                f"refresh: plan fingerprint {plan.fingerprint!r} does not "
+                f"match this pipeline's pre-delta state ({expect!r}) — "
+                f"refresh continues a chain, it cannot adopt a foreign plan")
+        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
+        t0 = time.time()
+        old_ds = self.ds
+        new_ds = delta.apply(old_ds)
+        updater = PlanUpdater(self.cfg, old_ds, new_ds, delta)
+        old_ppr = self._ppr_cache.get(split)
+        # advance the pipeline to the post-delta graph
+        self.ds = new_ds
+        self._content_sha_cache = None
+        self._ppr_cache.clear()
+        child, audit = updater.refresh(
+            plan, fingerprint=self.fingerprint(split, for_inference),
+            old_ppr=old_ppr)
+        if updater.new_ppr is not None:
+            self._ppr_cache[split] = updater.new_ppr
+        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
+        self.timings[f"refresh/{split}/{mode}"] = time.time() - t0
+        return child, audit
 
     # -- full preprocessing -------------------------------------------------
     def partition(self, split: str, for_inference: bool = False

@@ -10,7 +10,7 @@ own and records an event after the copies; the consumer makes its current
 stream wait on that event and calls ``record_stream`` on every staged
 tensor, so the caching allocator never hands a staged buffer to another
 stream while the step still reads it. Copies are from pageable host memory
-(pinned buffers are ROADMAP.md Queue 1 item 8).
+(pinned buffers are ROADMAP.md Queue 4 item 8).
 
 Shutdown is sentinel/Event based: a consumer that abandons the iterator
 early (break, exception, GC) triggers the generator's ``finally``, which

@@ -49,6 +49,15 @@
 // kernel allocates nothing, launches on the caller's stream and does not
 // synchronise; the C entry point returns cudaGetLastError() so the caller
 // can raise.
+//
+// Pattern mode (spmm_bcsr_pattern_f32): out = (A != 0) @ x, the neighbour
+// sum of GraphSAGE's mean aggregation under the bcsr backend. The
+// reference materialises bin_tiles = (tile_vals != 0) as a second f32
+// tensor of the tiles' size in every layer and runs the same kernel on it
+// (src/repro/models/gnn/ops.py:177-182); here the ballot that already
+// finds the nonzero entries drives the same walk, and each entry counts
+// as 1 (a NaN value too, since NaN != 0). It reads exactly the bytes the
+// weighted kernel reads and skips the shuffle of the value.
 
 #include "spmm_tile.cuh"
 
@@ -56,7 +65,7 @@ namespace {
 
 using spmm::kRB;
 
-template <int T, bool kBulk>
+template <int T, bool kBulk, bool kPattern>
 __global__ void __launch_bounds__(spmm::kThreads)
 spmm_bcsr_kernel(const int32_t* __restrict__ cols,
                  const float* __restrict__ vals, const float* __restrict__ x,
@@ -64,33 +73,50 @@ spmm_bcsr_kernel(const int32_t* __restrict__ cols,
   const int groups = (B + kRB - 1) / kRB;
   const int r = blockIdx.x / groups;
   const int i0 = (blockIdx.x % groups) * kRB;
-  spmm::block_rows<T, kBulk>(cols, vals, x, out, K, B, C, F, r, i0,
-                             blockIdx.y * spmm::kFB, 0, K);
+  spmm::block_rows<T, kBulk, kPattern>(cols, vals, x, out, K, B, C, F, r,
+                                       i0, blockIdx.y * spmm::kFB, 0, K);
 }
 
 using Kernel = void (*)(const int32_t*, const float*, const float*, float*,
                         int, int, int, int);
-// [bulk][log2 T]
-const Kernel kKernels[2][4] = {
-    {spmm_bcsr_kernel<1, false>, spmm_bcsr_kernel<2, false>,
-     spmm_bcsr_kernel<4, false>, spmm_bcsr_kernel<8, false>},
-    {spmm_bcsr_kernel<1, true>, spmm_bcsr_kernel<2, true>,
-     spmm_bcsr_kernel<4, true>, spmm_bcsr_kernel<8, true>}};
+// [pattern][bulk][log2 T]
+const Kernel kKernels[2][2][4] = {
+    {{spmm_bcsr_kernel<1, false, false>, spmm_bcsr_kernel<2, false, false>,
+      spmm_bcsr_kernel<4, false, false>, spmm_bcsr_kernel<8, false, false>},
+     {spmm_bcsr_kernel<1, true, false>, spmm_bcsr_kernel<2, true, false>,
+      spmm_bcsr_kernel<4, true, false>, spmm_bcsr_kernel<8, true, false>}},
+    {{spmm_bcsr_kernel<1, false, true>, spmm_bcsr_kernel<2, false, true>,
+      spmm_bcsr_kernel<4, false, true>, spmm_bcsr_kernel<8, false, true>},
+     {spmm_bcsr_kernel<1, true, true>, spmm_bcsr_kernel<2, true, true>,
+      spmm_bcsr_kernel<4, true, true>, spmm_bcsr_kernel<8, true, true>}}};
 
-}  // namespace
-
-extern "C" int spmm_bcsr_f32(const void* tile_cols, const void* tile_vals,
-                             const void* x, void* out, int R, int K, int B,
-                             int C, int F, void* stream) {
+int launch(bool pattern, const void* tile_cols, const void* tile_vals,
+           const void* x, void* out, int R, int K, int B, int C, int F,
+           void* stream) {
   if (R <= 0 || F <= 0 || B < 1 || B > spmm::kMaxB || K < 0 || C < 0)
     return (int)cudaErrorInvalidValue;
   const bool bulk = spmm::bulk_ok(tile_vals, B);
   const dim3 grid(R * ((B + kRB - 1) / kRB), (F + spmm::kFB - 1) / spmm::kFB);
-  kKernels[bulk][spmm::log2_features_per_lane(F)]
+  kKernels[pattern][bulk][spmm::log2_features_per_lane(F)]
       <<<grid, spmm::kThreads, bulk ? spmm::smem_bytes(B) : 0,
          (cudaStream_t)stream>>>(
           static_cast<const int32_t*>(tile_cols),
           static_cast<const float*>(tile_vals), static_cast<const float*>(x),
           static_cast<float*>(out), K, B, C, F);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int spmm_bcsr_f32(const void* tile_cols, const void* tile_vals,
+                             const void* x, void* out, int R, int K, int B,
+                             int C, int F, void* stream) {
+  return launch(false, tile_cols, tile_vals, x, out, R, K, B, C, F, stream);
+}
+
+extern "C" int spmm_bcsr_pattern_f32(const void* tile_cols,
+                                     const void* tile_vals, const void* x,
+                                     void* out, int R, int K, int B, int C,
+                                     int F, void* stream) {
+  return launch(true, tile_cols, tile_vals, x, out, R, K, B, C, F, stream);
 }

@@ -42,6 +42,11 @@
 //
 // Slots whose column tile lies outside [0, C) are skipped (their slab is
 // still read: the ring is indifferent to what a slot holds).
+//
+// Pattern mode (kPattern, GraphSAGE's neighbour sum): the same walk over
+// the same nonzero entries, with each entry taken as 1 in place of its
+// value, i.e. the product of the binary adjacency (tile_vals != 0) and x,
+// without that tensor. A NaN value is not zero, so it counts as 1.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -77,8 +82,10 @@ inline int log2_features_per_lane(int F) {
 }
 
 // The next set bit of a row's four window ballots, in ascending column
-// order: its column j and its value (lane `bit` of v[q]). m is uniform
-// across the warp, so every lane takes the same branches.
+// order: its column j and its value (lane `bit` of v[q]; 1 in pattern
+// mode). m is uniform across the warp, so every lane takes the same
+// branches.
+template <bool kPattern>
 __device__ __forceinline__ bool next_entry(uint32_t (&m)[kWindows],
                                            const float (&v)[kWindows],
                                            int& j, float& a) {
@@ -91,7 +98,7 @@ __device__ __forceinline__ bool next_entry(uint32_t (&m)[kWindows],
   if (m[0]) { q = 0; mq = m[0]; vq = v[0]; }
   const int bit = __ffs(mq) - 1;
   j = 32 * q + bit;
-  a = __shfl_sync(kFull, vq, bit);
+  a = kPattern ? 1.f : __shfl_sync(kFull, vq, bit);
   const uint32_t rest = mq & (mq - 1);
 #pragma unroll
   for (int w = 0; w < kWindows; ++w)
@@ -102,7 +109,8 @@ __device__ __forceinline__ bool next_entry(uint32_t (&m)[kWindows],
 // Add one slot's products to the warp's accumulators. `slab` holds `rows`
 // rows of B values (shared or global memory); `xt` is x's row block of the
 // slot's column tile at the block's first feature; nf features are live.
-template <int T>
+// kPattern multiplies each nonzero entry's x row by 1, not by its value.
+template <int T, bool kPattern>
 __device__ __forceinline__ void accumulate_slot(
     const float* slab, int B, int rows, const float* __restrict__ xt,
     int F, int nf, int warp, int lane, float (&acc)[T]) {
@@ -118,7 +126,7 @@ __device__ __forceinline__ void accumulate_slot(
     m[q] = __ballot_sync(kFull, v[q] != 0.f);
   int j;
   float a;
-  while (next_entry(m, v, j, a)) {
+  while (next_entry<kPattern>(m, v, j, a)) {
     const float* xr = xt + (size_t)j * F;
     float xv[T];
 #pragma unroll
@@ -133,7 +141,7 @@ __device__ __forceinline__ void accumulate_slot(
 // the tile), features f0 .. f0+kFB-1 (fewer at the end of x), slots
 // [k_lo, k_hi); the sums go to dst (R*B, F), row-major. Every thread of
 // the block calls this with the same arguments.
-template <int T, bool kBulk>
+template <int T, bool kBulk, bool kPattern = false>
 __device__ __forceinline__ void block_rows(
     const int32_t* __restrict__ cols, const float* __restrict__ vals,
     const float* __restrict__ x, float* __restrict__ dst, int K, int B,
@@ -188,8 +196,8 @@ __device__ __forceinline__ void block_rows(
     }
     // uniform across the block: no thread skips a barrier alone
     if (c >= 0 && c < C)
-      accumulate_slot<T>(slab, B, rows, x + (size_t)c * B * F + f0, F, nf,
-                         warp, lane, acc);
+      accumulate_slot<T, kPattern>(slab, B, rows, x + (size_t)c * B * F + f0,
+                                   F, nf, warp, lane, acc);
     if constexpr (kBulk) {
       __syncthreads();                  // every warp is done with stage s
       if (threadIdx.x == 0 && n + kStages < nk) {

@@ -18,6 +18,12 @@ same function:
   grid axis, split into ``S`` ranges whose partial sums a second kernel
   adds in fixed order.
 
+``pattern=True`` computes ``(A != 0) @ x`` instead, the neighbour sum of
+GraphSAGE's mean aggregation: the ``"cuda"`` kernel's pattern mode
+(``spmm_bcsr_pattern_f32``, counted as ``spmm_bcsr_pattern``) takes each
+nonzero entry as 1 without building the binary tiles; the plain versions
+multiply ``binary_tiles(tile_vals)``, as the reference does.
+
 Both stream ``tile_vals`` once through shared memory and multiply only its
 nonzero entries (``csrc/spmm_tile.cuh``), so a NaN or Inf in ``x`` reaches
 only the rows whose nonzero entries read it, as in the reference's
@@ -34,9 +40,11 @@ import torch
 
 from repro_torch.device import DeviceSpec, resolve_device, to_tensor
 from repro_torch.kernels import build
-from repro_torch.kernels.spmm.ref import spmm_bcsr_ref, spmm_bcsr_stream
+from repro_torch.kernels.spmm.ref import (
+    binary_tiles, spmm_bcsr_ref, spmm_bcsr_stream)
 
 KERNEL = "spmm_bcsr"
+KERNEL_PATTERN = "spmm_bcsr_pattern"
 SOURCE = "spmm_bcsr.cu"
 KERNEL_UNFUSED = "spmm_bcsr_unfused"
 SOURCE_UNFUSED = "spmm_bcsr_unfused.cu"
@@ -186,11 +194,13 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _launch_cuda(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
-    """Validate the operands, allocate the output and launch the kernel on
-    the current stream. Raises on anything the kernel does not take and on
-    a refused launch; never falls back to a plain version."""
-    _check_operands(tile_cols, tile_vals, x, KERNEL)
+                 x: torch.Tensor, pattern: bool = False) -> torch.Tensor:
+    """Validate the operands, allocate the output and launch the kernel
+    (its pattern mode with ``pattern``) on the current stream. Raises on
+    anything the kernel does not take and on a refused launch; never falls
+    back to a plain version."""
+    name = KERNEL_PATTERN if pattern else KERNEL
+    _check_operands(tile_cols, tile_vals, x, name)
     r, k, b, _ = tile_vals.shape
     f = x.shape[1]
     dev = x.device
@@ -198,7 +208,7 @@ def _launch_cuda(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = build.load_library(SOURCE)
-    fn = lib.spmm_bcsr_f32
+    fn = lib.spmm_bcsr_pattern_f32 if pattern else lib.spmm_bcsr_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -206,8 +216,8 @@ def _launch_cuda(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(tile_cols.data_ptr(), tile_vals.data_ptr(), x.data_ptr(),
                  out.data_ptr(), r, k, b, x.shape[0] // b, f, stream)
-    _raise_on(err, KERNEL)
-    build.count_launch(KERNEL)
+    _raise_on(err, name)
+    build.count_launch(name)
     return out
 
 
@@ -270,8 +280,10 @@ def _launch_cuda_unfused(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
 
 
 def spmm_bcsr(bcsr_cols, bcsr_vals, x, impl: Optional[str] = None,
-              block_f: int = 0, device: DeviceSpec = None) -> torch.Tensor:
-    """out = A @ x over padded block-CSR tiles.
+              block_f: int = 0, device: DeviceSpec = None,
+              pattern: bool = False) -> torch.Tensor:
+    """out = A @ x over padded block-CSR tiles (``(A != 0) @ x`` with
+    ``pattern``).
 
     bcsr_cols (R, K) int32, bcsr_vals (R, K, B, B), x (C·B, F) → (R·B, F).
     Tensors stay on their device; host arrays go to ``device`` (``cuda``
@@ -284,7 +296,9 @@ def spmm_bcsr(bcsr_cols, bcsr_vals, x, impl: Optional[str] = None,
     ``"stream"`` and ``"reference"`` run the plain versions on any device.
     ``block_f`` is the autotuner's feature-tile width, sized for a TPU's
     VMEM: a hint the CUDA kernels do not need (they pick their own tiling),
-    accepted so callers keep one decision key.
+    accepted so callers keep one decision key. ``pattern`` runs on
+    ``"cuda"`` (its pattern mode) and on the plain versions; the unfused
+    kernel, off the GNN path, has no pattern mode and raises.
     """
     cols = _as_tensor(bcsr_cols, device)
     vals = _as_tensor(bcsr_vals, device)
@@ -292,39 +306,49 @@ def spmm_bcsr(bcsr_cols, bcsr_vals, x, impl: Optional[str] = None,
     if impl is None:
         impl = "cuda" if x.device.type == "cuda" else "stream"
     if impl == "cuda":
-        return _launch_cuda(cols, vals, x)
+        return _launch_cuda(cols, vals, x, pattern)
     if impl == "cuda_unfused":
+        if pattern:
+            raise ValueError("impl='cuda_unfused' has no pattern mode; use "
+                             "impl='cuda'")
         return _launch_cuda_unfused(cols, vals, x)
-    if impl == "stream":
-        return spmm_bcsr_stream(cols, vals, x)
-    if impl == "reference":
-        return spmm_bcsr_ref(cols, vals, x)
-    raise ValueError(f"unknown impl {impl!r}; want one of {IMPLS} or None")
+    if impl not in ("stream", "reference"):
+        raise ValueError(f"unknown impl {impl!r}; want one of {IMPLS} or "
+                         f"None")
+    if pattern:
+        vals = binary_tiles(vals, x.dtype)
+    plain = spmm_bcsr_stream if impl == "stream" else spmm_bcsr_ref
+    return plain(cols, vals, x)
 
 
 class _SpmmBcsrSym(torch.autograd.Function):
     """``A @ x`` for a symmetric ``A``: the backward pass is the same op on
     the cotangent, ``Aᵀ g = A g``; the tiles are preprocessing constants and
-    get no gradient (``repro.kernels.spmm.ops.spmm_bcsr_sym``)."""
+    get no gradient (``repro.kernels.spmm.ops.spmm_bcsr_sym``). The pattern
+    of a symmetric ``A`` is symmetric too, so ``pattern`` carries into the
+    backward unchanged."""
 
     @staticmethod
-    def forward(ctx, bcsr_cols, bcsr_vals, x, impl, block_f):
+    def forward(ctx, bcsr_cols, bcsr_vals, x, impl, block_f, pattern):
         ctx.save_for_backward(bcsr_cols, bcsr_vals)
-        ctx.impl, ctx.block_f = impl, block_f
-        return spmm_bcsr(bcsr_cols, bcsr_vals, x, impl=impl, block_f=block_f)
+        ctx.impl, ctx.block_f, ctx.pattern = impl, block_f, pattern
+        return spmm_bcsr(bcsr_cols, bcsr_vals, x, impl=impl, block_f=block_f,
+                         pattern=pattern)
 
     @staticmethod
     def backward(ctx, g):
         bcsr_cols, bcsr_vals = ctx.saved_tensors
         dx = spmm_bcsr(bcsr_cols, bcsr_vals, g.contiguous(), impl=ctx.impl,
-                       block_f=ctx.block_f)
-        return None, None, dx, None, None
+                       block_f=ctx.block_f, pattern=ctx.pattern)
+        return None, None, dx, None, None, None
 
 
 def spmm_bcsr_sym(bcsr_cols: torch.Tensor, bcsr_vals: torch.Tensor,
                   x: torch.Tensor, impl: Optional[str] = None,
-                  block_f: int = 0) -> torch.Tensor:
-    """``A @ x`` for a SYMMETRIC block-CSR ``A``, differentiable in ``x``.
-    The IBMB batch adjacency is symmetric by construction (DESIGN.md §7),
-    which ``build_batches`` checks before it emits tiles."""
-    return _SpmmBcsrSym.apply(bcsr_cols, bcsr_vals, x, impl, block_f)
+                  block_f: int = 0, pattern: bool = False) -> torch.Tensor:
+    """``A @ x`` (``(A != 0) @ x`` with ``pattern``) for a SYMMETRIC
+    block-CSR ``A``, differentiable in ``x``. The IBMB batch adjacency is
+    symmetric by construction (DESIGN.md §7), which ``build_batches``
+    checks before it emits tiles."""
+    return _SpmmBcsrSym.apply(bcsr_cols, bcsr_vals, x, impl, block_f,
+                              pattern)

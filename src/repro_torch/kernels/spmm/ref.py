@@ -35,3 +35,11 @@ def spmm_bcsr_stream(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
     for s in range(k):
         acc += torch.bmm(tile_vals[:, s], xt[cols[:, s]])
     return acc.reshape(r * b, f)
+
+
+def binary_tiles(tile_vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The nonzero pattern of the tiles as ``dtype`` (1 where a value is not
+    zero, NaN included): the reference's ``bin_tiles``
+    (``repro.models.gnn.ops.mean_agg_backend``), which the plain versions
+    multiply in pattern mode."""
+    return (tile_vals != 0).to(dtype)

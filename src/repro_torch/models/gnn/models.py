@@ -1,12 +1,14 @@
-"""The paper's GCN (App. B config) in PyTorch: plain functions on tensors.
+"""The paper's three evaluation GNNs, GCN, GraphSAGE and GAT (App. B
+configs), in PyTorch: plain functions on tensors.
 
-Parameters keep the JAX package's layout — ``{"layers": [{"w", "b",
-"ln_scale", "ln_bias"}, ...]}`` with ``w`` of shape ``(d_in, d_out)``,
-applied as ``h @ w`` — so ``repro_torch.convert.params_from_jax`` carries
-reference parameters over unchanged. Batches are dicts of tensors
-(``repro_torch.device.stage``). The GCN serves and trains (dropout from an
-explicit ``torch.Generator``, masked cross-entropy); SAGE and GAT come with
-a later slice (ROADMAP.md, Queue 1 item 6).
+Parameters keep the JAX package's layout — ``{"layers": [{...}, ...]}``
+with GCN's ``w``/``b``, SAGE's ``w_self``/``w_nbr``/``b`` and GAT's
+``w``/``a_src``/``a_dst``/``b``, weights of shape ``(d_in, d_out)`` applied
+as ``h @ w``, and ``ln_scale``/``ln_bias`` on every hidden layer — so
+``repro_torch.convert.params_from_jax`` carries reference parameters over
+unchanged. Batches are dicts of tensors (``repro_torch.device.stage``).
+All three serve and train (LayerNorm, ReLU, dropout from an explicit
+``torch.Generator``, masked cross-entropy).
 """
 from __future__ import annotations
 
@@ -16,11 +18,10 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.models.gnn import ops
-
-_LATER = {"sage": "SAGE", "gat": "GAT"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,15 +41,6 @@ class GNNConfig:
     bcsr_block_f: int = 0
 
 
-def _require_gcn(kind: str) -> None:
-    if kind in _LATER:
-        raise NotImplementedError(
-            f"{_LATER[kind]} is not ported yet (ROADMAP.md, Queue 1 item 6: "
-            f"SAGE and GAT); the port runs the GCN")
-    if kind != "gcn":
-        raise ValueError(kind)
-
-
 def _glorot(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     fan_in, fan_out = shape[0], shape[-1]
     lim = float(np.sqrt(6.0 / (fan_in + fan_out)))
@@ -57,18 +49,34 @@ def _glorot(gen: torch.Generator, shape, dtype) -> torch.Tensor:
 
 def init_gnn(cfg: GNNConfig, generator: torch.Generator,
              device: DeviceSpec = None) -> Dict:
-    """GCN parameters with the reference's shapes and Glorot limits, drawn
-    from ``generator`` (a CPU generator, so a seed gives the same weights
-    on every device) and placed on ``device`` (``cuda`` by default)."""
-    _require_gcn(cfg.kind)
+    """Parameters with the reference's shapes and Glorot limits, drawn from
+    ``generator`` (a CPU generator, so a seed gives the same weights on
+    every device) in the order the layer dict lists them, and placed on
+    ``device`` (``cuda`` by default)."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     dims = [cfg.in_dim] + [cfg.hidden] * (cfg.num_layers - 1) + [cfg.out_dim]
     params: Dict = {"layers": []}
     for l in range(cfg.num_layers):
         d_in, d_out = dims[l], dims[l + 1]
-        layer = {"w": _glorot(generator, (d_in, d_out), dtype),
-                 "b": torch.zeros((d_out,), dtype=dtype)}
+        if cfg.kind == "gcn":
+            layer = {"w": _glorot(generator, (d_in, d_out), dtype),
+                     "b": torch.zeros((d_out,), dtype=dtype)}
+        elif cfg.kind == "sage":
+            layer = {"w_self": _glorot(generator, (d_in, d_out), dtype),
+                     "w_nbr": _glorot(generator, (d_in, d_out), dtype),
+                     "b": torch.zeros((d_out,), dtype=dtype)}
+        elif cfg.kind == "gat":
+            h = cfg.heads
+            last = l == cfg.num_layers - 1
+            dh = d_out if last else d_out // h
+            layer = {"w": _glorot(generator, (d_in, h * dh), dtype),
+                     "a_src": _glorot(generator, (h, dh), dtype),
+                     "a_dst": _glorot(generator, (h, dh), dtype),
+                     "b": torch.zeros((d_out if last else h * dh,),
+                                      dtype=dtype)}
+        else:
+            raise ValueError(cfg.kind)
         if l < cfg.num_layers - 1:
             layer["ln_scale"] = torch.ones((d_out,), dtype=dtype)
             layer["ln_bias"] = torch.zeros((d_out,), dtype=dtype)
@@ -93,6 +101,35 @@ def _gcn_layer(p, h, batch, backend="segment", block_f=0):
     return h + p["b"]
 
 
+def _sage_layer(p, h, batch, backend="segment", block_f=0):
+    nbr = ops.mean_agg_backend(h, batch, backend, block_f=block_f)
+    return h @ p["w_self"] + nbr @ p["w_nbr"] + p["b"]
+
+
+def _gat_layer(p, h, batch, backend="segment", block_f=0):
+    # GAT recomputes edge weights from attention every step, so there are
+    # no precomputable tiles: it always runs the segment path (DESIGN.md
+    # §7); `backend` is accepted for a uniform layer signature. Per-edge
+    # rows are gathered with index_select (see ops.segment_softmax)
+    n = h.shape[0]
+    heads, dh = p["a_src"].shape
+    z = (h @ p["w"]).reshape(n, heads, dh)
+    src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
+    e_src = (z * p["a_src"][None]).sum(-1)                     # (N, H)
+    e_dst = (z * p["a_dst"][None]).sum(-1)
+    logits = F.leaky_relu(e_src.index_select(0, src) +
+                          e_dst.index_select(0, dst), 0.2)     # (E, H)
+    att = ops.segment_softmax(logits, src, n, batch["edge_mask"])
+    msgs = z.index_select(0, dst) * att[..., None]             # (E, H, dh)
+    out = torch.zeros_like(z).index_add_(0, src, msgs)
+    if p["b"].shape[0] == heads * dh:       # hidden layers: concat heads
+        return out.reshape(n, heads * dh) + p["b"]
+    return out.mean(dim=1) + p["b"]         # output layer: average heads
+
+
+_LAYERS = {"gcn": _gcn_layer, "sage": _sage_layer, "gat": _gat_layer}
+
+
 def gnn_apply(cfg: GNNConfig, params: Dict, batch: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator] = None,
               train: bool = False) -> torch.Tensor:
@@ -100,14 +137,20 @@ def gnn_apply(cfg: GNNConfig, params: Dict, batch: Dict[str, torch.Tensor],
     (N, C); the caller selects output rows via batch['output_idx']. Runs
     where the batch and parameters lie. With ``train`` and a ``generator``
     (on the batch's device), dropout follows the ReLU of every hidden
-    layer, each layer drawing its mask from the generator in turn."""
-    _require_gcn(cfg.kind)
+    layer, each layer drawing its mask from the generator in turn. SAGE
+    under bcsr takes the tiles' degree once per forward, not per layer."""
+    layer_fn = _LAYERS[cfg.kind]
     h = batch["features"].to(getattr(torch, cfg.dtype))
+    if "edge_mask" not in batch:
+        batch = dict(batch, edge_mask=(batch["edge_weight"] != 0).to(h.dtype))
     backend = ops.validate_batch_for_backend(
         batch, getattr(cfg, "backend", "segment"), cfg.kind)
+    if cfg.kind == "sage" and backend == "bcsr":
+        batch = dict(batch, bcsr_degree=ops.bcsr_degree(batch["tile_vals"],
+                                                         h.dtype))
     block_f = int(getattr(cfg, "bcsr_block_f", 0))
     for l, p in enumerate(params["layers"]):
-        h = _gcn_layer(p, h, batch, backend, block_f)
+        h = layer_fn(p, h, batch, backend, block_f)
         if l < cfg.num_layers - 1:
             h = ops.layer_norm(h, p["ln_scale"], p["ln_bias"])
             h = torch.relu(h)

@@ -11,14 +11,23 @@ ids, answered from a ``Plan`` with no preprocessing on the request path:
    policies run every batch on one backend; ``BackendPolicy.auto()``
    follows the plan's stored autotuner decisions (DESIGN.md §14). Each
    missing batch's host arrays are staged to the device once per forward;
-   with the bcsr backend on a CUDA device the aggregation is the
-   hand-written block-CSR SpMM kernel.
+   with the bcsr backend on a CUDA device the GCN's and SAGE's aggregation
+   is the hand-written block-CSR SpMM kernel (GAT runs the segment path).
 4. **Gather** — per-node logit rows are sliced out of the batch output,
    on the host, and scattered back into each request.
 
-Repeat traffic is served from an LRU of recent batch outputs. The engine is
-single-threaded. Not ported yet (ROADMAP.md): ``mesh=`` serving,
-``swap`` onto a refreshed plan and ``ooc_stats``.
+Repeat traffic is served from an LRU of recent batch outputs.
+
+Dynamic graphs (DESIGN.md §10): ``swap(plan, delta)`` hot-swaps the engine
+onto a refreshed plan atomically between requests. Only the LRU entries of
+batches the refresh rebuilt or patched are invalidated; untouched batches
+keep serving from cache, and the per-``versions`` stats table (requests /
+lru_hits / batch_runs / hit_rate per plan version) shows traffic flowing
+across the swap. A refused swap rolls back and is recorded in
+``swap_audit``.
+
+The engine is single-threaded. Not ported yet (ROADMAP.md): ``mesh=``
+serving and ``ooc_stats``.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.plan import Plan
+from repro_torch.core.plan import Plan, check_routing
 from repro_torch.device import DeviceSpec, resolve_device, stage
 from repro_torch.models.gnn import ops as gnn_ops
 from repro_torch.models.gnn import policy as gnn_policy
@@ -76,20 +85,23 @@ class GNNInferenceEngine:
         # request-latency timing through the injectable clock (DESIGN.md §11)
         self.clock = clock if clock is not None else SystemClock()
         self.cache_batches = max(0, cache_batches)
-        # fail fast at construction, not on the first unlucky query
-        gnn_ops.validate_batch_for_backend(
-            plan.cache[0], "auto" if self.policy.is_auto else model_cfg.backend,
-            model_cfg.kind)
+        # fail fast at construction, not on the first unlucky query; the
+        # auto policy validates by tile presence
+        self._vb = "auto" if self.policy.is_auto else model_cfg.backend
+        gnn_ops.validate_batch_for_backend(plan.cache[0], self._vb,
+                                           model_cfg.kind)
         # per-batch (backend, block_f): the plan's stored autotuner
         # decisions under an auto policy, uniform under a fixed one
         self._decisions = gnn_policy.batch_decisions(plan, self.policy,
                                                      model_cfg)
         self._lru: "OrderedDict[int, np.ndarray]" = OrderedDict()
         self.stats: Dict = dict(requests=0, nodes=0, batch_runs=0,
-                                lru_hits=0, evictions=0, versions={})
-        self._vstats = self.stats["versions"].setdefault(
-            int(getattr(plan, "version", 0)),
-            dict(requests=0, lru_hits=0, batch_runs=0, hit_rate=0.0))
+                                lru_hits=0, evictions=0, swap_count=0,
+                                swap_rollbacks=0, versions={})
+        # audit trail of swap attempts (DESIGN.md §12): one record per call,
+        # including refused swaps that rolled back to the parent version
+        self.swap_audit: List[Dict] = []
+        self._vstats = self._version_bucket(getattr(plan, "version", 0))
         # one forward per (backend, block_f) decision, built lazily;
         # `_forward` holds the base decision's forward as a plain attribute
         # (the patchable surface tests inject faults through)
@@ -119,7 +131,83 @@ class GNNInferenceEngine:
             self._fwd[key] = self._build_forward(backend, int(block_f))
         return self._fwd[key]
 
+    # ----------------------------------------------------------- hot swap
+    def swap(self, plan: Plan, delta=None, validate: bool = True
+             ) -> Dict[str, int]:
+        """Hot-swap onto a refreshed plan (DESIGN.md §10), atomically
+        between requests: everything is computed first, then the plan, LRU
+        and per-batch decisions are assigned together.
+
+        ``delta`` is the :class:`~repro_torch.core.update.PlanDelta` from
+        ``IBMBPipeline.refresh``: only its rebuilt/patched batches leave
+        the LRU, untouched batches keep serving from it. Without a delta
+        the whole LRU is cleared. A delta that does not link the serving
+        plan to the incoming one (parent/child fingerprints) is refused
+        with ValueError, as is (with ``validate``) a plan whose routing
+        fails :func:`repro_torch.core.plan.check_routing` or whose batches
+        lack what the backend needs. Any failure leaves the engine serving
+        the plan it had, appends a rollback record to ``swap_audit`` and
+        re-raises. Returns ``{"invalidated": ..., "kept": ...}``.
+        """
+        prev = (self.plan, self._lru, self._vstats, self._decisions)
+        try:
+            # fail fast, BEFORE touching any serving state
+            gnn_ops.validate_batch_for_backend(
+                plan.cache[0], self._vb, self.cfg.kind)
+            if delta is not None:
+                if delta.parent_fingerprint != self.plan.fingerprint:
+                    raise ValueError(
+                        f"swap: delta parents {delta.parent_fingerprint!r} "
+                        f"but the engine is serving "
+                        f"{self.plan.fingerprint!r} — refresh the serving "
+                        f"plan, not another chain")
+                if delta.child_fingerprint != plan.fingerprint:
+                    raise ValueError(
+                        f"swap: delta produced {delta.child_fingerprint!r} "
+                        f"but the incoming plan is {plan.fingerprint!r} — "
+                        f"this audit record does not describe that plan, "
+                        f"and trusting it would keep stale LRU entries "
+                        f"serving")
+            if validate:
+                check_routing(plan)
+            if delta is None:
+                dirty = set(self._lru)              # conservative: drop all
+            else:
+                dirty = set(int(i) for i in delta.dirty)
+            keep = OrderedDict((bi, out) for bi, out in self._lru.items()
+                               if bi not in dirty and bi < len(plan))
+            invalidated = len(self._lru) - len(keep)
+            # the incoming plan carries its own autotuner decisions (a
+            # refresh may re-decide rebuilt batches, DESIGN.md §14)
+            decisions = gnn_policy.batch_decisions(plan, self.policy,
+                                                   self.cfg)
+            self.plan, self._lru, self._decisions = plan, keep, decisions
+            self.stats["swap_count"] += 1
+            self.stats["evictions"] += invalidated
+            self._vstats = self._version_bucket(getattr(plan, "version", 0))
+        except Exception as e:
+            # roll back and audit: the engine keeps serving the parent
+            self.plan, self._lru, self._vstats, self._decisions = prev
+            self.stats["swap_rollbacks"] += 1
+            self.swap_audit.append(dict(
+                ok=False, serving_version=getattr(self.plan, "version", 0),
+                refused_version=getattr(plan, "version", None),
+                reason=f"{type(e).__name__}: {e}"))
+            raise
+        self.swap_audit.append(dict(
+            ok=True, from_version=getattr(prev[0], "version", 0),
+            to_version=getattr(plan, "version", 0),
+            invalidated=invalidated, kept=len(keep)))
+        return {"invalidated": invalidated, "kept": len(keep)}
+
     # ------------------------------------------------------------ internals
+    def _version_bucket(self, version: int) -> Dict[str, float]:
+        """Per-plan-version counters inside ``stats['versions']`` (DESIGN.md
+        §10)."""
+        return self.stats["versions"].setdefault(
+            int(version), dict(requests=0, lru_hits=0, batch_runs=0,
+                               hit_rate=0.0))
+
     def _bump(self, **inc) -> None:
         for k, v in inc.items():
             self.stats[k] += v

@@ -11,8 +11,9 @@ is too slow to execute every epoch"), and the non-finite gradient guard
 Each step runs eagerly on the trainer's device (``cuda`` unless the caller
 passes another). Batches are staged by ``PrefetchLoader`` on a side stream
 while the previous step computes; with the bcsr backend on a CUDA device
-every aggregation, forward and backward, is the hand-written block-CSR
-SpMM kernel. Parameters and optimizer state are trees of tensors with the
+every aggregation of the GCN and SAGE, forward and backward, is the
+hand-written block-CSR SpMM kernel (SAGE's in its pattern mode); GAT
+aggregates on the segment path whatever the backend. Parameters and optimizer state are trees of tensors with the
 reference's layout, so either package's state carries into the other.
 """
 from __future__ import annotations

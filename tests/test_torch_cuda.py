@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the kernels against their plain versions, the
-loader's side-stream staging, a short fit, and the LM's prefill and
+"""The port on a CUDA card: the kernels against their plain versions (the
+SpMM's pattern mode too), the loader's side-stream staging, short GCN and
+SAGE fits, a GAT and a SAGE step against the CPU, and the LM's prefill and
 serving through the flash-attention kernel.
 
 Every test is marked ``cuda`` and skips without a card. The file imports
@@ -17,7 +18,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
 from repro_torch.kernels.spmm import (
-    csr_to_bcsr, spmm_bcsr, spmm_bcsr_ref, spmm_bcsr_sym)
+    binary_tiles, csr_to_bcsr, spmm_bcsr, spmm_bcsr_ref, spmm_bcsr_sym)
 
 # f32, TF32 off: kernel and plain version differ only in summation order
 ATOL = RTOL = 1e-4
@@ -224,6 +225,119 @@ def test_short_fit_launches_the_kernel_on_every_aggregation(dev):
     assert build.launches["spmm_bcsr"] == \
         2 * (4 * len(train) + 2 * len(val))
     assert all(np.isfinite(h["train_loss"]) for h in res.history)
+
+
+# ------------------------------------------ the SpMM kernel's pattern mode
+@pytest.mark.parametrize("block", [1, 7, 16, 128])
+@pytest.mark.parametrize("f", [40, 256, 300])
+def test_pattern_kernel_matches_plain_and_repeats_bitwise(dev, block, f):
+    """``(A != 0) @ x`` forward and backward against the plain version on
+    the binary tiles, with all-zero slots and column tiles outside x; a
+    second call gives the same bits."""
+    (cols, vals), x, g, (sc, sv), _ = _spmm_case(block, f, dev, 3 * block + f)
+    bin_sv = binary_tiles(sv, torch.float32)
+    build.reset_launches()
+    xt = x.clone().requires_grad_(True)
+    out = spmm_bcsr_sym(cols, vals, xt, pattern=True)
+    out.backward(g)
+    again = spmm_bcsr(cols, vals, x, pattern=True)
+    torch.cuda.synchronize()
+    assert build.launches["spmm_bcsr_pattern"] == 3
+    assert build.launches.get("spmm_bcsr", 0) == 0
+    torch.testing.assert_close(out, spmm_bcsr_ref(sc, bin_sv, x), atol=ATOL,
+                               rtol=RTOL)
+    torch.testing.assert_close(xt.grad, spmm_bcsr_ref(sc, bin_sv, g),
+                               atol=ATOL, rtol=RTOL)
+    assert torch.equal(again.view(torch.int32), out.view(torch.int32))
+
+
+@pytest.mark.parametrize("block", [7, 128])
+def test_pattern_kernel_nan_rules(dev, block):
+    """A NaN value counts as 1; a NaN row of x reaches exactly the rows
+    whose nonzero entries read it."""
+    (cols, vals), x, _g, (sc, sv), a = _spmm_case(block, 40, dev, 9)
+    nz = (vals != 0).nonzero()[0]
+    nan_vals, one_vals = vals.clone(), vals.clone()
+    nan_vals[tuple(nz)], one_vals[tuple(nz)] = float("nan"), 1.0
+    got = spmm_bcsr(cols, nan_vals, x, pattern=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, spmm_bcsr(cols, one_vals, x, pattern=True))
+    p = int(np.flatnonzero(np.asarray(a.sum(axis=0)).ravel())[0])
+    readers = torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+    readers[:a.shape[0]] = torch.as_tensor(a[:, p].toarray().ravel() != 0,
+                                           device=dev)
+    xn, xz = x.clone(), x.clone()
+    xn[p], xz[p] = float("nan"), 0.0
+    got = spmm_bcsr(cols, vals, xn, pattern=True)
+    want = spmm_bcsr_ref(sc, binary_tiles(sv, torch.float32), xz)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got).all(dim=1), readers)
+    assert not bool(torch.isnan(got[~readers]).any())
+    torch.testing.assert_close(got[~readers], want[~readers], atol=ATOL,
+                               rtol=RTOL)
+
+
+def _tiny_plans(backend="bcsr"):
+    from repro_torch.core import IBMBConfig, IBMBPipeline
+    from repro_torch.graph.datasets import get_dataset
+    ds = get_dataset("tiny")
+    pipe = IBMBPipeline(ds, IBMBConfig(
+        variant="node", k_per_output=8, max_outputs_per_batch=16,
+        pad_multiple=32, backend=backend, tune_blocks=(16, 32)))
+    return ds, pipe.plan("train"), pipe.plan("val", for_inference=True)
+
+
+def test_short_sage_fit_launches_the_pattern_kernel_on_every_aggregation(
+        dev):
+    """Per train step: one launch per layer forward and one per layer
+    backward but the first (raw features need no gradient); one per layer
+    per evaluated val batch; the weighted kernel never."""
+    from repro_torch.models.gnn import GNNConfig
+    from repro_torch.train import GNNTrainer
+    ds, train, val = _tiny_plans()
+    layers = 3
+    cfg = GNNConfig(kind="sage", in_dim=ds.feat_dim, hidden=32,
+                    out_dim=ds.num_classes, num_layers=layers, dropout=0.3)
+    build.reset_launches()
+    res = GNNTrainer(cfg, backend="bcsr").fit(train, val, ds.num_classes,
+                                              epochs=2)
+    torch.cuda.synchronize()
+    assert build.launches["spmm_bcsr_pattern"] == \
+        2 * ((2 * layers - 1) * len(train) + layers * len(val))
+    assert build.launches.get("spmm_bcsr", 0) == 0
+    assert all(np.isfinite(h["train_loss"]) for h in res.history)
+
+
+@pytest.mark.parametrize("kind, backend", [("gat", "bcsr"),
+                                           ("sage", "bcsr")])
+def test_gnn_kind_step_on_the_card_matches_cpu(dev, kind, backend):
+    """One train step's loss and gradients, card against CPU, at dropout
+    0; GAT runs the segment path whatever the backend and launches no
+    SpMM."""
+    from repro_torch.device import stage
+    from repro_torch.models.gnn import GNNConfig
+    from repro_torch.optim import tree_leaves, tree_map
+    from repro_torch.train import GNNTrainer
+    ds, train, _val = _tiny_plans()
+    cfg = GNNConfig(kind=kind, in_dim=ds.feat_dim, hidden=32,
+                    out_dim=ds.num_classes, num_layers=3, heads=4,
+                    dropout=0.0)
+    card = GNNTrainer(cfg, backend=backend)
+    params = card.init_params()
+    build.reset_launches()
+    got_l, got_g = card._steps_for(backend, 0)["grad"](
+        params, stage(train.cache[0], dev), None)
+    torch.cuda.synchronize()
+    launched = sum(build.launches.values())
+    assert launched == (0 if kind == "gat" else 5)
+    cpu = GNNTrainer(cfg, backend=backend, device="cpu")
+    want_l, want_g = cpu._steps_for(backend, 0)["grad"](
+        tree_map(lambda t: t.cpu(), params), stage(train.cache[0], "cpu"),
+        None)
+    torch.testing.assert_close(got_l.cpu(), want_l, atol=ATOL, rtol=RTOL)
+    for a, b in zip(tree_leaves(got_g), tree_leaves(want_g)):
+        torch.testing.assert_close(a.cpu(), b, atol=ATOL, rtol=RTOL)
 
 
 # ---------------------------------------------------------- flash attention

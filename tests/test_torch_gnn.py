@@ -83,9 +83,18 @@ def test_init_gnn_shapes_and_glorot_limits(setup):
 
 @pytest.mark.parametrize("kind", ["sage", "gat"])
 def test_sage_and_gat_wait_for_their_slice(setup, kind):
-    batch, kw, params = setup
-    cfg = GNNConfig(**dict(kw, kind=kind))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_gnn(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gnn_apply(cfg, params_from_jax(params, "cpu"), stage(batch, "cpu"))
+    """Their slice has landed: both kinds initialise with the reference's
+    layer keys and shapes and run a forward on a bcsr batch
+    (``tests/test_torch_gnn_kinds.py`` holds them to JAX)."""
+    batch, kw, _params = setup
+    cfg = GNNConfig(**dict(kw, kind=kind, backend="bcsr"))
+    ref = jax_init_gnn(JaxGNNConfig(**dict(kw, kind=kind)),
+                       jax.random.PRNGKey(0))
+    port = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for lj, lp in zip(ref["layers"], port["layers"]):
+        assert {k: tuple(v.shape) for k, v in lp.items()} == \
+            {k: tuple(v.shape) for k, v in lj.items()}
+    tb = stage(batch, "cpu")
+    out = gnn_apply(cfg, port, tb)
+    assert tuple(out.shape) == (tb["features"].shape[0], kw["out_dim"])
+    assert bool(torch.isfinite(out).all())

@@ -63,7 +63,11 @@ def test_fresh_import_loads_no_jax_and_no_repro():
                 "repro_torch.models.lm.config", "repro_torch.models.lm.common",
                 "repro_torch.models.lm.attention",
                 "repro_torch.models.lm.blocks", "repro_torch.models.lm.model",
-                "repro_torch.serve.engine", "repro_torch.convert"):
+                "repro_torch.serve.engine", "repro_torch.convert",
+                "repro_torch.core.update", "repro_torch.core.pipeline",
+                "repro_torch.configs.gnn_gcn", "repro_torch.configs.gnn_sage",
+                "repro_torch.configs.gnn_gat", "repro_torch.models.gnn.ops",
+                "repro_torch.models.gnn.models"):
         assert mod in got["modules"]
     assert got["loaded"] == []
 
@@ -98,3 +102,13 @@ def test_scan_flags_forbidden_imports(tmp_path):
                  "def f():\n    import jax.numpy as jnp\n")
     assert [b.split(" imports ")[1] for b in _bad_imports(str(p))] == \
         ["repro.core", "jax.numpy"]
+
+
+def test_refresh_swap_and_the_other_kinds_are_ported():
+    from repro_torch.core import GraphDelta, IBMBPipeline, PlanDelta
+    from repro_torch.models.gnn.models import _LAYERS
+    from repro_torch.serve import GNNInferenceEngine
+    assert callable(IBMBPipeline.refresh) and callable(GNNInferenceEngine.swap)
+    assert GraphDelta().summary()["edge_inserts"] == 0
+    assert "dirty" in dir(PlanDelta)
+    assert sorted(_LAYERS) == ["gat", "gcn", "sage"]
