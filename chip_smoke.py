@@ -73,6 +73,29 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               keeps the other batches in the LRU; a plan with damaged
               routing is refused and rolled back, and the engine answers
               bit-identically to before.
+8d. ooc     — the serving tiers, the GCN under a fixed bcsr policy on the
+              test Plan: ``pipe.plan(out_of_core=True)`` streams it into a
+              ``PlanStore`` (chunks of 1 batch), held to the resident Plan
+              bit for bit; 32 cold queries from ``as_plan(resident_batches=
+              1)`` on the card bit-identical to the resident engine
+              (latency, ``ooc_stats``); a 2-shard build behind a
+              ``ShardRouter`` answers them bit-identically too.
+8e. async   — ``AsyncGNNEngine`` (worker thread, ``SystemClock``) with a
+              resident tenant (v1 of refresh-swap's chain) and an
+              out-of-core one (the store): 256 seeded requests, 32 with a
+              deadline, the resident tenant swapped to v2 mid-stream; every
+              answer bit-identical to the synchronous engine on its plan
+              version, rows of untouched batches unchanged by the swap, and
+              no reject, expiry, failure, retry, breaker open or restart.
+8f. async-faults — the same tier under a scripted ``FaultInjector``, one
+              request at a time: retried and failing forwards, a breaker
+              that opens on one tenant while the other serves and closes on
+              the half-open probe, a worker death the watchdog restarts, a
+              50 ms dispatch stall, a ``batch_io`` read retry; counters
+              exact, answers bit-identical to the healthy path; then
+              ``plan_io`` on ``Plan.save`` and ``Plan.load`` (the old file
+              intact). From 8d to here the SpMM launches equal 3 x the
+              batch forwards of every engine these phases ran.
 9. flash-real — the flash-attention kernel at the llama3.2-1b prefill
               shape (B=1, 32 heads over 8 kv heads, S=4096, head dim 64,
               causal) in bf16 and in f32 against the plain version, then
@@ -97,11 +120,19 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 13. lm-serve — ``ServeEngine`` (4 slots, max_len 512) serves 8 seeded
               requests at full width in bf16; all complete, none evicted,
               and the first request's tokens equal those it gets alone.
+14. checkpoint — ``Checkpointer`` round trips on the card: the GCN's
+              trained parameters and Adam state (from phase train), and
+              llama3.2-1b's bf16 parameters (from lm-prefill, stored as
+              ``V2`` bits), every leaf restored bit for bit (save and
+              restore seconds); ``ckpt_io`` on a background save re-raised
+              by ``wait``; a corrupt newest step and ``auto_resume`` falls
+              back to the older one.
 
 The second-to-last line is a JSON ``kernels`` record and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
 it exits non-zero and prints no result.
 """
+import atexit
 import contextlib
 import ctypes
 import dataclasses
@@ -109,10 +140,13 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+import types
 import unittest.mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -411,6 +445,407 @@ def bshd(torch, gen, shape, dtype, dev):
         .transpose(1, 2)
 
 
+def same_bytes(np, a, b) -> bool:
+    """Two arrays of the same dtype and shape, bit for bit."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
+
+
+def same_tensor_bits(torch, a, b) -> bool:
+    """Two tensors of the same dtype, shape and device type, bit for bit."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.device.type == b.device.type and torch.equal(
+                a.detach().reshape(-1).view(torch.uint8),
+                b.detach().reshape(-1).view(torch.uint8)))
+
+
+def du_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _dirs, files in os.walk(path) for f in files)
+
+
+def check_same_plan(np, got, want, what: str) -> None:
+    """Fingerprint, schedule, routing, membership, decisions and every
+    batch field (through the verified per-batch read) bit for bit."""
+    if got.fingerprint != want.fingerprint:
+        raise AssertionError(f"{what}: fingerprint {got.fingerprint} != "
+                             f"{want.fingerprint}")
+    for name, a, b in (
+            ("schedule", got.schedule, want.schedule),
+            ("node_ids", got.node_ids, want.node_ids),
+            ("batch_backend", got.batch_backend, want.batch_backend),
+            ("batch_block_f", got.batch_block_f, want.batch_block_f),
+            *((f"routing.{f}", getattr(got.routing, f),
+               getattr(want.routing, f)) for f in ("node_ids", "batch",
+                                                   "row"))):
+        if not same_bytes(np, a, b):
+            raise AssertionError(f"{what}: {name} differs")
+    if len(got) != len(want) or got.cache.meta != want.cache.meta:
+        raise AssertionError(f"{what}: batch counts differ")
+    for i in range(len(want)):
+        a, b = got.cache[i], want.cache[i]
+        if sorted(a) != sorted(b) or not all(same_bytes(np, a[k], b[k])
+                                             for k in b):
+            raise AssertionError(f"{what}: batch {i} differs")
+
+
+def ooc_phase(ctx) -> None:
+    """Stream the test plan into a PlanStore, hold it to the resident plan
+    bit for bit, serve cold queries from it with a one-batch budget and
+    through a 2-shard router on the card, against the resident engine."""
+    import numpy as np
+    from repro_torch.core import IBMBPipeline
+    from repro_torch.ooc import OOCConfig, PlanStore, ShardRouter, build_shards
+    from repro_torch.serve import GNNInferenceEngine
+
+    opipe = IBMBPipeline(ctx.ds, ctx.pipe_cfg)   # the graph before refresh
+    ctx.store_dir = os.path.join(ctx.work, "store")
+    t0 = time.perf_counter()
+    lazy = opipe.plan("test", for_inference=True, out_of_core=True,
+                      store_dir=ctx.store_dir,
+                      ooc=OOCConfig(chunk_batches=1, resident_batches=1))
+    stream_s = time.perf_counter() - t0
+    check_same_plan(np, lazy, ctx.plan, "streamed test plan")
+    print(f"streamed test plan: {len(lazy)} batches, bit-identical to the "
+          f"resident plan (fingerprint {lazy.fingerprint}, every batch "
+          f"field); store {du_bytes(ctx.store_dir)} bytes on disk "
+          f"(payload {lazy.cache.nbytes()}); built in {stream_s:.3f} s "
+          f"against {ctx.plan_s:.3f} s for the resident plan() (host "
+          f"clock, both with their PPR)", flush=True)
+
+    sync = GNNInferenceEngine(ctx.plan, ctx.cfg, ctx.params,
+                              cache_batches=len(ctx.plan), device=ctx.dev)
+    cold = GNNInferenceEngine(
+        PlanStore.open(ctx.store_dir).as_plan(resident_batches=1), ctx.cfg,
+        ctx.params, cache_batches=0, device=ctx.dev)
+    ctx.engines += [sync, cold]
+    lat = []
+    for q in ctx.queries:
+        t0 = time.perf_counter()
+        got = cold.query(q)
+        lat.append(time.perf_counter() - t0)
+        if got.tobytes() != sync.query(q).tobytes():
+            raise AssertionError("a lazy answer differs from the resident "
+                                 "engine's")
+    p50, p95 = np.percentile(np.array(lat) * 1e3, [50, 95])
+    print(f"lazy engine (resident_batches=1, no output LRU): "
+          f"{len(ctx.queries)} cold queries of 16 ids bit-identical to the "
+          f"resident engine on the card; latency p50 {p50:.2f} ms p95 "
+          f"{p95:.2f} ms (host clock); {cold.stats['batch_runs']} batch "
+          f"runs; ooc_stats {json.dumps(cold.ooc_stats())}", flush=True)
+    if cold.ooc_stats()["resident"] > 1 or cold.stats["lru_hits"]:
+        raise AssertionError(f"budget broken: {cold.ooc_stats()}")
+
+    root = os.path.join(ctx.work, "shards")
+    t0 = time.perf_counter()
+    man = build_shards(opipe, "test", 2, root, for_inference=True,
+                       ooc=OOCConfig(chunk_batches=1))
+    shard_s = time.perf_counter() - t0
+    router = ShardRouter.load(root, ctx.cfg, ctx.params, device=ctx.dev)
+    ctx.engines += [sh.engine for sh in router.shards.values()]
+    hits = []
+    for q in ctx.queries:
+        if router.query(q).tobytes() != sync.query(q).tobytes():
+            raise AssertionError("a shard-routed answer differs from the "
+                                 "resident engine's")
+        hits.append(router.shards_hit(q))
+    snap = router.snapshot()
+    spans = dict(zip(*(v.tolist() for v in np.unique(hits,
+                                                     return_counts=True))))
+    print(f"2 shards ({[sh['num_batches'] for sh in man['shards']]} "
+          f"batches, chain {man['chain']}) built in {shard_s:.3f} s, "
+          f"{du_bytes(root)} bytes; {len(ctx.queries)} routed queries "
+          f"bit-identical to the resident engine; shards_hit per query "
+          f"{spans}; router "
+          f"{ {k: snap[k] for k in ('requests', 'nodes', 'shard_misses')} }",
+          flush=True)
+    if max(hits) < 2:
+        raise AssertionError("no query spanned both shards")
+    shutil.rmtree(root)
+
+
+def serve_config(AsyncServeConfig):
+    """The tier's policy in both async phases: one retry, a breaker after
+    two failed windows, 300 ms of cooldown."""
+    return AsyncServeConfig(max_retries=1, breaker_threshold=2,
+                            breaker_cooldown_us=300_000.0)
+
+
+def async_phase(ctx) -> None:
+    """256 requests through the threaded async tier (SystemClock), half to
+    a resident tenant and half to an out-of-core one, with a swap of the
+    resident tenant mid-stream; every answer bit-identical to the
+    synchronous engine on the same plan version, and no degradation
+    machinery touched."""
+    import numpy as np
+    from repro_torch.ooc import PlanStore
+    from repro_torch.serve import (AsyncGNNEngine, AsyncServeConfig,
+                                   GNNInferenceEngine, SystemClock)
+
+    def engine(plan, lru):
+        e = GNNInferenceEngine(plan, ctx.cfg, ctx.params, cache_batches=lru,
+                               device=ctx.dev)
+        ctx.engines.append(e)
+        return e
+
+    ctx.sync = {v: engine(p, len(p)) for v, p in (
+        (0, ctx.plan), (1, ctx.child), (2, ctx.grand))}
+    lazy = PlanStore.open(ctx.store_dir).as_plan(resident_batches=1)
+    tier = AsyncGNNEngine({"resident": engine(ctx.child, 0),
+                           "ooc": engine(lazy, 0)},
+                          serve_config(AsyncServeConfig),
+                          clock=SystemClock(), start=True)
+    rng = np.random.default_rng(37)
+    deadline = set(rng.choice(256, 32, replace=False).tolist())
+    sent = []
+
+    def submit(i):
+        tenant = ("resident", "ooc")[i % 2]
+        ids = rng.choice(ctx.plan.routing.node_ids, 16, replace=False)
+        sent.append((i, tenant, ids, tier.submit(
+            tenant, ids, deadline_ms=60_000.0 if i in deadline else None)))
+
+    try:
+        t0 = time.perf_counter()
+        for i in range(128):
+            submit(i)
+        for i, tenant, ids, fut in sent:     # the resident half drains; the
+            if tenant == "resident":         # out-of-core tenant may still
+                fut.result(timeout=300.0)    # be in flight across the swap
+        swap = tier.swap("resident", ctx.grand, ctx.audit2)
+        for i in range(128, 256):
+            submit(i)
+        answers = [fut.result(timeout=300.0) for *_rest, fut in sent]
+        wall = time.perf_counter() - t0
+    finally:
+        tier.close()
+    dirty = np.asarray(ctx.audit2.dirty)
+    untouched_rows = 0
+    for (i, tenant, ids, fut), got in zip(sent, answers):
+        version = 0 if tenant == "ooc" else (1 if i < 128 else 2)
+        if got.tobytes() != ctx.sync[version].query(ids).tobytes():
+            raise AssertionError(f"request {i} ({tenant}) differs from the "
+                                 f"synchronous engine on plan v{version}")
+        if version == 2:                     # rows of untouched batches:
+            keep = ~np.isin(ctx.grand.routing.lookup(ids)[0], dirty)
+            if got[keep].tobytes() != \
+                    ctx.sync[1].query(ids)[keep].tobytes():
+                raise AssertionError(f"request {i}: an untouched batch's "
+                                     f"rows changed across the swap")
+            untouched_rows += int(keep.sum())
+    snap = tier.snapshot()
+    bad = {k: snap[k] for k in ("rejected", "expired", "failed",
+                                "window_errors") if snap[k]}
+    bad.update({k: v for k, v in snap["faults"].items() if v})
+    if bad or snap["completed"] != 256:
+        raise AssertionError(f"the healthy path degraded: {bad}, "
+                             f"completed {snap['completed']}")
+    print(f"async tier: 256 requests (128 per tenant, 32 with a 60 s "
+          f"deadline) bit-identical to the synchronous engine on each "
+          f"plan version; swap of 'resident' v1 -> v2 mid-stream {swap}, "
+          f"{untouched_rows} rows of untouched batches bit-identical across "
+          f"it; windows {snap['windows']}, mean requests per window "
+          f"{snap['mean_window_requests']:.2f}, last window's occupancy "
+          f"{snap['window_occupancy']:.3f}, latency p50 "
+          f"{snap['p50_us'] / 1e3:.2f} ms p95 {snap['p95_us'] / 1e3:.2f} ms "
+          f"(SystemClock), {256 / wall:.1f} requests/s over {wall:.3f} s; "
+          f"rejects, expirations, failures, retries, breaker opens and "
+          f"worker restarts all 0; ooc tenant "
+          f"{json.dumps(snap['tenants']['ooc']['ooc'])}", flush=True)
+
+
+def async_faults_phase(ctx) -> None:
+    """The same tier under a scripted FaultInjector, one request at a
+    time: forward faults a retry absorbs, two failed windows that open the
+    out-of-core tenant's breaker while the resident tenant serves, a
+    worker death the watchdog restarts, a dispatch stall, a batch_io fault
+    a read retry absorbs, and the half-open probe that closes the breaker;
+    then plan_io on a Plan.save."""
+    import numpy as np
+    from repro_torch.core import IBMBConfig, IBMBPipeline, Plan
+    from repro_torch.faults import FaultInjector, InjectedFault, WorkerDeath
+    from repro_torch.graph.datasets import get_dataset
+    from repro_torch.ooc import PlanStore
+    from repro_torch.serve import (AsyncGNNEngine, AsyncServeConfig,
+                                   GNNInferenceEngine, ServeUnavailable,
+                                   SystemClock)
+
+    # call indices per point, one request at a time (the reference's
+    # FakeClock tests of tests/test_faults.py read the same way): forward
+    # 0 (A, retried), 2-3 (B), 4-5 (C); step 4 (F) dies; dispatch 4 (G)
+    # stalls; read 1 (the probe H's first miss; read 0 is the engine's
+    # check of batch 0)
+    inj = FaultInjector(seed=41, script={
+        "forward": [0, 2, 3, 4, 5], "worker_death": [4],
+        "dispatch_delay": [4], "batch_io": [1]},
+        delays={"dispatch_delay": 0.05})
+    store = PlanStore.open(ctx.store_dir, faults=inj, io_retries=2)
+    tenants = {
+        "resident": GNNInferenceEngine(ctx.grand, ctx.cfg, ctx.params,
+                                       cache_batches=0, device=ctx.dev),
+        "ooc": GNNInferenceEngine(store.as_plan(resident_batches=1), ctx.cfg,
+                                  ctx.params, cache_batches=0,
+                                  device=ctx.dev)}
+    ctx.engines += list(tenants.values())
+    tier = AsyncGNNEngine(tenants, serve_config(AsyncServeConfig),
+                          clock=SystemClock(), faults=inj, start=True)
+    rng = np.random.default_rng(43)
+    healthy = {"resident": ctx.sync[2], "ooc": ctx.sync[0]}
+    log = []
+
+    def one(name, tenant, want):
+        ids = rng.choice(ctx.plan.routing.node_ids, 16, replace=False)
+        fut = tier.submit(tenant, ids)
+        if not fut.wait(300.0):
+            raise AssertionError(f"{name}: the future did not terminate")
+        exc = fut.exception(0)
+        if want is None:
+            if exc is not None:
+                raise AssertionError(f"{name}: {exc!r}")
+            if fut.result(0).tobytes() != healthy[tenant].query(ids) \
+                    .tobytes():
+                raise AssertionError(f"{name}: differs from the healthy "
+                                     f"path")
+        elif not isinstance(exc, want):
+            raise AssertionError(f"{name}: want {want.__name__}, got "
+                                 f"{exc!r}")
+        log.append(f"{name} {tenant} "
+                   f"{'ok' if exc is None else type(exc).__name__} "
+                   f"{fut.latency_s * 1e3:.1f} ms")
+        return fut
+
+    try:
+        one("A", "resident", None)               # absorbed by a retry
+        one("B", "ooc", InjectedFault)           # retries exhausted
+        one("C", "ooc", InjectedFault)           # ... again: breaker opens
+        one("D", "ooc", ServeUnavailable)        # fast reject while open
+        one("E", "resident", None)               # the other tenant serves
+        one("F", "resident", WorkerDeath)        # the watchdog restarts
+        g = one("G", "resident", None)           # a 50 ms stall
+        time.sleep(0.35)                         # past the cooldown
+        one("H", "ooc", None)                    # half-open probe closes it
+    finally:
+        tier.close()
+    snap = tier.snapshot()
+    want_faults = dict(retries=3, fast_rejects=1, worker_restarts=1,
+                       breaker_opens=1, breaker_closes=1, swap_rollbacks=0)
+    want_stats = dict(submitted=8, accepted=7, rejected_unavailable=1,
+                      completed=4, failed=3, window_errors=2, windows=6,
+                      expired=0)
+    got_faults = {k: snap["faults"][k] for k in want_faults}
+    got_stats = {k: snap[k] for k in want_stats}
+    fired = {k: v["fired"] for k, v in snap["faults"]["injected"].items()}
+    io = snap["tenants"]["ooc"]["ooc"]
+    print(f"async under faults: {'; '.join(log)}; fault_stats {got_faults}; "
+          f"stats {got_stats}; injected {fired}; ooc tenant io_retries "
+          f"{io['io_io_retries']}; breakers "
+          f"{ {n: t['breaker']['state'] for n, t in snap['tenants'].items()} }",
+          flush=True)
+    if got_faults != want_faults or got_stats != want_stats or fired != \
+            {"forward": 5, "worker_death": 1, "dispatch_delay": 1,
+             "batch_io": 1} or io["io_io_retries"] != 1 or \
+            g.latency_s < 0.05:
+        raise AssertionError("the fault script did not play out as the "
+                             "reference's semantics say")
+
+    # plan_io: a failed save leaves the old artifact as it was
+    tiny = IBMBPipeline(get_dataset("tiny"), IBMBConfig(
+        variant="node", backend="bcsr", k_per_output=8,
+        max_outputs_per_batch=16, pad_multiple=32)).plan(
+        "test", for_inference=True)
+    path = os.path.join(ctx.work, "plan.npz")
+    pio = FaultInjector(script={"plan_io": [1, 2]})
+    tiny.save(path, faults=pio)
+    with open(path, "rb") as f:
+        before = f.read()
+    for what, call in (("save", lambda: tiny.save(path, faults=pio)),
+                       ("load", lambda: Plan.load(path, faults=pio))):
+        try:
+            call()
+        except OSError as e:
+            print(f"plan_io on Plan.{what}: {e}", flush=True)
+        else:
+            raise AssertionError(f"plan_io did not fire in Plan.{what}")
+    with open(path, "rb") as f:
+        if f.read() != before or os.path.exists(path + ".tmp"):
+            raise AssertionError("a failed Plan.save touched the old file")
+    check_same_plan(np, Plan.load(path, faults=pio), tiny, "reloaded plan")
+    print("the old plan file intact and loadable after the failed save",
+          flush=True)
+
+
+def checkpoint_phase(ctx) -> None:
+    """Round-trip the GCN's trained parameters and Adam state, and
+    llama3.2-1b's bf16 parameters, through the checkpointer on the card;
+    a ckpt_io fault on a background save, and a corrupt newest step."""
+    import torch
+    from repro_torch.checkpoint import (Checkpointer, CheckpointError,
+                                        all_steps)
+    from repro_torch.faults import FaultInjector, corrupt_file
+    from repro_torch.optim import tree_leaves, tree_map
+
+    def round_trip(name, tree, directory, keep):
+        ck = Checkpointer(directory, keep=keep)
+        t0 = time.perf_counter()
+        ck.save(tree, 1, extra={"what": name})        # in the background
+        snap_s = time.perf_counter() - t0
+        ck.wait()
+        write_s = time.perf_counter() - t0 - snap_s
+        template = tree_map(torch.zeros_like, tree)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, manifest = ck.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        leaves, got = tree_leaves(tree), tree_leaves(out)
+        if len(got) != len(leaves) or not all(
+                same_tensor_bits(torch, a, b) for a, b in zip(got, leaves)):
+            raise AssertionError(f"{name}: a restored leaf differs")
+        n = sum(t.numel() for t in leaves)
+        print(f"checkpoint {name}: {len(leaves)} leaves, {n} values "
+              f"({sorted({str(t.dtype) for t in leaves})}), "
+              f"{du_bytes(directory)} bytes on disk; save: snapshot to the "
+              f"host {snap_s:.3f} s, background write {write_s:.3f} s; "
+              f"restore onto the card {restore_s:.3f} s; every leaf "
+              f"bit-identical (manifest dtypes "
+              f"{sorted(set(manifest['dtypes'].values()))})", flush=True)
+        return ck
+
+    gcn = {"params": ctx.gcn_params, "opt": ctx.gcn_opt}
+    ck = round_trip("GCN params + Adam state", gcn,
+                    os.path.join(ctx.work, "ckpt_gcn"), keep=2)
+    round_trip(f"{ctx.lm_name} bf16 params", ctx.lm_params,
+               os.path.join(ctx.work, "ckpt_lm"), keep=1)
+    shutil.rmtree(os.path.join(ctx.work, "ckpt_lm"))
+
+    bad = Checkpointer(os.path.join(ctx.work, "ckpt_fault"),
+                       faults=FaultInjector(script={"ckpt_io": [0]}))
+    bad.save(gcn, 1)                                  # in the background
+    try:
+        bad.wait()
+    except CheckpointError as e:
+        print(f"ckpt_io on a background save, re-raised by wait(): {e}",
+              flush=True)
+    else:
+        raise AssertionError("a failed background save went unreported")
+    if all_steps(bad.directory):
+        raise AssertionError("a failed save left a checkpoint behind")
+
+    later = tree_map(lambda t: t + 1 if t.is_floating_point() else t, gcn)
+    ck.save(later, 2, blocking=True)
+    corrupt_file(os.path.join(ck.directory, "step-00000002", "shard-0.npz"),
+                 seed=2, nbytes=8)
+    out, manifest = ck.auto_resume(tree_map(torch.zeros_like, gcn))
+    if manifest["step"] != 1 or not all(
+            same_tensor_bits(torch, a, b) for a, b in
+            zip(tree_leaves(out), tree_leaves(gcn))):
+        raise AssertionError(f"auto_resume did not fall back to step 1: "
+                             f"step {manifest['step']}")
+    print(f"corrupt newest step 2: auto_resume fell back to step "
+          f"{manifest['step']}, bit-identical", flush=True)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"{SRC}/repro_torch not found: run from the root of a checkout")
@@ -689,10 +1124,11 @@ def main() -> None:
     with phase("plan"):
         ds = get_dataset("arxiv-like")
         pipe = IBMBPipeline(ds, IBMBConfig(variant="node", backend="bcsr"))
-        plans = {}
+        plans, plan_s = {}, {}
         for split in ("train", "val", "test"):
             t0 = time.perf_counter()
             plan = pipe.plan(split, for_inference=split != "train")
+            plan_s[split] = time.perf_counter() - t0
             plans[split] = plan
             tv = plan.cache.fields["tile_vals"]
             print(f"arxiv-like {split} plan: {len(plan)} batches, max_nodes "
@@ -940,6 +1376,7 @@ def main() -> None:
                     torch.Generator(dev).manual_seed(i))
                 float(loss)
             torch.cuda.synchronize()
+            return params, state
 
         epoch_of_steps()                                  # warm
         t0 = time.perf_counter()
@@ -947,7 +1384,8 @@ def main() -> None:
         wall = (time.perf_counter() - t0) * 1e3 / len(train_plan)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            epoch_of_steps()
+            # trained parameters and Adam state, for the checkpoint phase
+            gcn_params, gcn_opt = epoch_of_steps()
         split = {k: v / 1e3 / len(train_plan) for k, v in
                  device_time_split(prof, torch).items()}
         busy = sum(split.values())
@@ -1344,6 +1782,38 @@ def main() -> None:
               flush=True)
         del eng, params
 
+    # the serving tiers: the GCN under a fixed bcsr policy on the test
+    # Plan, streamed to disk, sharded and behind the async tier; their
+    # SpMM launches are counted from here to the end of async-faults
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    ctx = types.SimpleNamespace(
+        dev=dev, ds=ds, pipe_cfg=pipe.cfg,
+        cfg=dataclasses.replace(cfg, backend="bcsr"),
+        params=init_gnn(cfg, torch.Generator().manual_seed(0), device=dev),
+        plan=plans["test"], plan_s=plan_s["test"], queries=queries[:32],
+        child=child, grand=grand, audit2=audit2, work=work, engines=[])
+    build.reset_launches()
+
+    with phase("ooc"):
+        ooc_phase(ctx)
+
+    with phase("async"):
+        async_phase(ctx)
+
+    with phase("async-faults"):
+        async_faults_phase(ctx)
+        torch.cuda.synchronize()
+        runs = sum(e.stats["batch_runs"] for e in ctx.engines)
+        counts = {k: v for k, v in build.launches.items() if v}
+        print(f"ooc, async and async-faults: {len(ctx.engines)} engines ran "
+              f"{runs} batch forwards; launches {counts} (want spmm_bcsr "
+              f"{cfg.num_layers} x {runs})", flush=True)
+        if counts != {"spmm_bcsr": cfg.num_layers * runs}:
+            raise AssertionError(f"launches {counts} for {runs} batch "
+                                 f"forwards of a {cfg.num_layers}-layer GCN")
+        shutil.rmtree(ctx.store_dir)
+
     with phase("flash-real"):
         # the llama3.2-1b prefill (src/repro/configs/llama3_2_1b.py): B=1,
         # 32 heads over 8 kv heads, S=4096, head dim 64, causal, bf16
@@ -1606,7 +2076,13 @@ def main() -> None:
         if alone.out_tokens != reqs[0].out_tokens:
             raise AssertionError("request 0's tokens depend on its "
                                  "neighbours in the batch")
-        del serve_params, params, eng
+        del eng
+
+    with phase("checkpoint"):
+        ctx.gcn_params, ctx.gcn_opt = gcn_params, gcn_opt
+        ctx.lm_params, ctx.lm_name = serve_params, LM_ARCH
+        checkpoint_phase(ctx)
+        del serve_params, params, ctx.lm_params
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,

@@ -18,9 +18,10 @@ it advances the pipeline to the post-delta dataset and emits the next plan
 in the version chain, rebuilding only the batches the delta actually
 dirtied (incremental PPR push decides) plus a ``PlanDelta`` audit record.
 
-The port leaves out the out-of-core build (``ooc``), queued in
-ROADMAP.md. Everything else matches ``repro.core.pipeline`` line for
-line, so the two packages build and refresh bitwise-identical plans.
+``plan(split, out_of_core=True, store_dir=...)`` streams the build into a
+``repro_torch.ooc`` PlanStore instead (DESIGN.md §13). Everything matches
+``repro.core.pipeline`` line for line, so the two packages build, stream
+and refresh bitwise-identical plans.
 
 Variants (paper Sec. 5 setup):
 * "node"  — node-wise IBMB: PPR-distance partitioning + node-wise top-k aux.
@@ -149,11 +150,29 @@ class IBMBPipeline:
         return plan_fingerprint(dataclasses.asdict(self.cfg), sig, split, mode)
 
     # -- the primary entry point: frozen Plan artifact ----------------------
-    def plan(self, split: str, for_inference: bool = False) -> Plan:
+    def plan(self, split: str, for_inference: bool = False,
+             out_of_core: bool = False, store_dir: Optional[str] = None,
+             ooc=None) -> Plan:
         """Run preprocessing end to end and freeze the result (DESIGN.md §8):
         batches + cache + schedule + routing index + fingerprint + timings.
         The returned Plan is what ``GNNTrainer.fit/evaluate``,
-        ``GNNInferenceEngine`` and ``Plan.save`` consume."""
+        ``GNNInferenceEngine`` and ``Plan.save`` consume.
+
+        ``out_of_core=True`` (DESIGN.md §13) streams the build instead:
+        batches are constructed chunk by chunk and appended to a
+        :class:`~repro_torch.ooc.store.PlanStore` at ``store_dir`` as they
+        finish — the full padded batch payload is NEVER resident at once —
+        and the returned Plan is backed by a lazy, mmap-backed cache with a
+        bounded resident-batch budget (``ooc`` is an optional
+        :class:`~repro_torch.ooc.stream.OOCConfig`). Per-batch contents,
+        schedule, routing index and fingerprint are bit-identical to the
+        resident build."""
+        if out_of_core:
+            from repro_torch.ooc.stream import stream_plan
+            if store_dir is None:
+                raise ValueError("out_of_core=True needs store_dir (the "
+                                 "PlanStore directory to stream batches to)")
+            return stream_plan(self, split, for_inference, store_dir, ooc)
         mode = "inference" if for_inference else "train"
         batches = self.preprocess(split, for_inference=for_inference)
         # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint

@@ -1,8 +1,8 @@
 """The frozen, serializable preprocessing artifact — ``Plan`` (DESIGN.md §8).
 
-The port's copy of ``repro.core.plan``. It leaves out the fault-injection
-hooks of ``save``/``open``/``load`` and ``Plan.supersteps`` (both wait for
-their own slices, see ROADMAP.md); the npz format is unchanged, so either
+The port's copy of ``repro.core.plan``, with the ``plan_io`` fault hooks of
+``save``/``open``/``load``. It leaves out ``Plan.supersteps`` (it waits for
+the multi-GPU slice, see ROADMAP.md); the npz format is unchanged, so either
 package loads the other's artifacts.
 
 The paper's headline amortization is that preprocessing is computed ONCE and
@@ -48,6 +48,7 @@ import numpy as np
 
 from repro_torch.core.batches import BatchCache, PaddedBatch
 from repro_torch.core.ppr import TopKPPR
+from repro_torch.faults import NO_FAULTS
 
 PLAN_VERSION = 3
 # still-loadable on-disk versions: v2 artifacts predate per-batch backend
@@ -366,7 +367,8 @@ class Plan:
                     else _frozen(np.asarray(batch_block_f, np.int32)))
 
     # ------------------------------------------------------- persistence
-    def save(self, path: str, compress: bool = False) -> None:
+    def save(self, path: str, compress: bool = False,
+             faults=NO_FAULTS) -> None:
         """Versioned on-disk format: one npz. Cache fields are stored under
         ``cache/``; schedule/routing/membership/ppr/meta alongside.
         ``compress=True`` writes a zipped npz (smaller artifact, slower
@@ -377,7 +379,8 @@ class Plan:
         leave a truncated artifact at ``path`` — readers see the old plan or
         the new one, nothing in between. The header additionally records a
         crc32 per array so ``load`` detects payload corruption that slips
-        past the zip layer."""
+        past the zip layer. ``faults`` is the injection hook for the
+        ``plan_io`` point."""
         meta_counts = np.array(
             [[m.get("nodes", 0), m.get("edges", 0), m.get("outputs", 0)]
              for m in self.cache.meta], np.int64)
@@ -412,6 +415,7 @@ class Plan:
             "checksums": {k: _crc32(v) for k, v in arrays.items()},
         })
         arrays[_JSON_KEY] = np.array(header)
+        faults.fire("plan_io", OSError)
         # savez through an open file object: numpy appends ".npz" to bare
         # PATHS but leaves file objects alone, which keeps the tmp name
         # exact for the os.replace publish.
@@ -428,8 +432,8 @@ class Plan:
             raise
 
     @staticmethod
-    def open(path: str, expect_fingerprint: Optional[str] = None
-             ) -> PlanHeader:
+    def open(path: str, expect_fingerprint: Optional[str] = None,
+             faults=NO_FAULTS) -> PlanHeader:
         """Read ONLY the metadata header of a saved plan — O(metadata), not
         O(payload). ``np.load`` on an npz is lazy (it reads the zip
         directory; members decompress on access), so pulling just the JSON
@@ -439,6 +443,7 @@ class Plan:
         (``Plan.load`` used to be the only option and eagerly read every
         array). The payload checksums are returned, not verified — only
         ``load`` reads the arrays they describe."""
+        faults.fire("plan_io", OSError)
         try:
             with np.load(path, allow_pickle=False) as z:
                 if _JSON_KEY not in z.files:
@@ -461,7 +466,8 @@ class Plan:
         return header
 
     @staticmethod
-    def load(path: str, expect_fingerprint: Optional[str] = None) -> "Plan":
+    def load(path: str, expect_fingerprint: Optional[str] = None,
+             faults=NO_FAULTS) -> "Plan":
         """Load a saved plan. ``expect_fingerprint`` (or
         ``IBMBPipeline.load_plan``) rejects artifacts produced by a
         different config/dataset/split/mode. A truncated or byte-flipped
@@ -469,6 +475,7 @@ class Plan:
         the zip member CRC on read or by the header's per-array checksums —
         never a half-loaded plan. ``FileNotFoundError`` still propagates
         as-is (absent and corrupt are different recovery decisions)."""
+        faults.fire("plan_io", OSError)
         try:
             with np.load(path, allow_pickle=False) as z:
                 arrays = {k: z[k] for k in z.files}   # materialize: zip CRC

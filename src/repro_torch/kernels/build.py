@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -33,15 +34,20 @@ SOURCES = ("spmm_bcsr.cu", "spmm_bcsr_unfused.cu", "gather_rows.cu",
 launches: Dict[str, int] = {}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# a serving tier launches from its worker thread while the main thread may
+# launch too: one lock keeps the first build and every count exact
+_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def count_launch(name: str) -> None:
-    launches[name] = launches.get(name, 0) + 1
+    with _lock:
+        launches[name] = launches.get(name, 0) + 1
 
 
 def cuda_tool(name: str) -> str:
@@ -124,7 +130,12 @@ def build(source: str) -> str:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>``, built first if needed."""
-    if source not in _loaded:
-        _loaded[source] = ctypes.CDLL(build(source))
-    return _loaded[source]
+    """The loaded library of ``csrc/<source>``, built first if needed (by
+    one thread: others wait for it)."""
+    lib = _loaded.get(source)
+    if lib is None:
+        with _lock:
+            if source not in _loaded:
+                _loaded[source] = ctypes.CDLL(build(source))
+            lib = _loaded[source]
+    return lib

@@ -1,3 +1,5 @@
+from repro_torch.serve.async_engine import (
+    AsyncGNNEngine, AsyncServeConfig, ServeStats)
 from repro_torch.serve.common import (
     CircuitBreaker, ServeClosed, ServeError, ServeExpired, ServeFuture,
     ServeRejected, ServeUnavailable, SlotPool, SystemClock)
@@ -5,8 +7,9 @@ from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.gnn_engine import GNNInferenceEngine, GNNRequest
 
 __all__ = [
-    "CircuitBreaker", "GNNInferenceEngine", "GNNRequest", "Request",
-    "ServeClosed", "ServeEngine", "ServeError", "ServeExpired",
-    "ServeFuture", "ServeRejected", "ServeUnavailable", "SlotPool",
+    "AsyncGNNEngine", "AsyncServeConfig", "CircuitBreaker",
+    "GNNInferenceEngine", "GNNRequest", "Request", "ServeClosed",
+    "ServeEngine", "ServeError", "ServeExpired", "ServeFuture",
+    "ServeRejected", "ServeStats", "ServeUnavailable", "SlotPool",
     "SystemClock",
 ]

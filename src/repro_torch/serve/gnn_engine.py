@@ -26,8 +26,13 @@ lru_hits / batch_runs / hit_rate per plan version) shows traffic flowing
 across the swap. A refused swap rolls back and is recorded in
 ``swap_audit``.
 
-The engine is single-threaded. Not ported yet (ROADMAP.md): ``mesh=``
-serving and ``ooc_stats``.
+Out-of-core plans (DESIGN.md §13): a plan from ``PlanStore.as_plan`` or
+``IBMBPipeline.plan(out_of_core=True)`` serves unchanged — each batch is
+read through its ``LazyBatchCache`` and staged like a resident one — and
+``ooc_stats`` reports the lazy cache's counters.
+
+The engine is single-threaded; ``AsyncGNNEngine`` serializes its calls
+per tenant. Not ported yet (ROADMAP.md): ``mesh=`` serving.
 """
 from __future__ import annotations
 
@@ -199,6 +204,14 @@ class GNNInferenceEngine:
             to_version=getattr(plan, "version", 0),
             invalidated=invalidated, kept=len(keep)))
         return {"invalidated": invalidated, "kept": len(keep)}
+
+    def ooc_stats(self) -> Optional[Dict]:
+        """Resident-budget/IO counters of an out-of-core plan's lazy cache
+        (DESIGN.md §13), or ``None`` for a resident plan — the engine-level
+        hook the serving tier's ``snapshot`` surfaces so operators can see
+        batch faulting, eviction pressure, and retried reads per tenant."""
+        snap = getattr(self.plan.cache, "snapshot", None)
+        return snap() if callable(snap) else None
 
     # ------------------------------------------------------------ internals
     def _version_bucket(self, version: int) -> Dict[str, float]:

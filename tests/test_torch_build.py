@@ -59,3 +59,45 @@ def test_the_compiler_report_is_read_beside_the_library(csrc):
     with open(path + ".log", "w") as f:
         f.write("ptxas info    : Used 168 registers\n")
     assert "168 registers" in build.build_log("flash_attention.cu")
+
+
+def test_launch_counts_and_the_first_load_hold_under_threads(monkeypatch):
+    """The async tier launches from its worker thread while the main thread
+    launches too: no count is lost, and a library is built and loaded by
+    one thread however many reach it first (16 threads, a short switch
+    interval)."""
+    import sys
+    import threading
+    built = []
+
+    def fake_build(source):
+        built.append(source)
+        return "lib.so"
+
+    monkeypatch.setattr(build, "build", fake_build)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "launches", {})
+    go = threading.Barrier(16)
+
+    def work():
+        go.wait(timeout=30)
+        build.load_library("spmm_bcsr.cu")
+        for _ in range(2000):
+            build.count_launch("spmm_bcsr")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert build.launches == {"spmm_bcsr": 16 * 2000}
+    assert built == ["spmm_bcsr.cu"]
+    build.reset_launches()
+    assert build.launches == {"spmm_bcsr": 0}

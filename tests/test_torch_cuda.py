@@ -1,7 +1,8 @@
 """The port on a CUDA card: the kernels against their plain versions (the
 SpMM's pattern mode too), the loader's side-stream staging, short GCN and
-SAGE fits, a GAT and a SAGE step against the CPU, and the LM's prefill and
-serving through the flash-attention kernel.
+SAGE fits, a GAT and a SAGE step against the CPU, the async tier with a
+resident and an out-of-core tenant against the synchronous engine, and
+the LM's prefill and serving through the flash-attention kernel.
 
 Every test is marked ``cuda`` and skips without a card. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -225,6 +226,52 @@ def test_short_fit_launches_the_kernel_on_every_aggregation(dev):
     assert build.launches["spmm_bcsr"] == \
         2 * (4 * len(train) + 2 * len(val))
     assert all(np.isfinite(h["train_loss"]) for h in res.history)
+
+
+def test_async_tier_and_lazy_engine_on_the_card(dev, tmp_path):
+    """A resident and an out-of-core tenant behind the threaded async tier
+    answer bit for bit what the synchronous engine on the card answers,
+    with no retry, reject or failure; the SpMM ran once per layer of every
+    batch forward of every engine."""
+    from repro_torch.core import IBMBConfig, IBMBPipeline
+    from repro_torch.graph.datasets import get_dataset
+    from repro_torch.models.gnn import GNNConfig, init_gnn
+    from repro_torch.ooc import OOCConfig
+    from repro_torch.serve import (AsyncGNNEngine, AsyncServeConfig,
+                                   GNNInferenceEngine)
+    ds = get_dataset("tiny")
+    pipe = IBMBPipeline(ds, IBMBConfig(
+        variant="node", k_per_output=8, max_outputs_per_batch=16,
+        pad_multiple=32, backend="bcsr"))
+    plan = pipe.plan("test", for_inference=True)
+    lazy = pipe.plan("test", for_inference=True, out_of_core=True,
+                     store_dir=str(tmp_path / "store"),
+                     ooc=OOCConfig(chunk_batches=1, resident_batches=1))
+    cfg = GNNConfig(in_dim=ds.feat_dim, hidden=32, out_dim=ds.num_classes,
+                    num_layers=2, backend="bcsr")
+    params = init_gnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    engines = {"resident": GNNInferenceEngine(plan, cfg, params,
+                                              cache_batches=0),
+               "ooc": GNNInferenceEngine(lazy, cfg, params, cache_batches=0)}
+    sync = GNNInferenceEngine(plan, cfg, params, cache_batches=0)
+    rng = np.random.default_rng(0)
+    ids = plan.routing.node_ids
+    queries = [rng.choice(ids, 5, replace=False) for _ in range(24)]
+    build.reset_launches()
+    tier = AsyncGNNEngine(engines, AsyncServeConfig(window_us=200.0))
+    futs = [tier.submit(("resident", "ooc")[i % 2], q)
+            for i, q in enumerate(queries)]
+    got = [f.result(timeout=120.0) for f in futs]
+    tier.close()
+    for q, g in zip(queries, got):
+        assert g.tobytes() == sync.query(q).tobytes()
+    torch.cuda.synchronize()
+    snap = tier.snapshot()
+    assert snap["completed"] == len(queries) and snap["failed"] == 0
+    assert snap["rejected"] == 0 and snap["faults"]["retries"] == 0
+    assert snap["tenants"]["ooc"]["ooc"]["resident"] <= 1
+    runs = sum(e.stats["batch_runs"] for e in (*engines.values(), sync))
+    assert build.launches["spmm_bcsr"] == cfg.num_layers * runs
 
 
 # ------------------------------------------ the SpMM kernel's pattern mode

@@ -67,7 +67,11 @@ def test_fresh_import_loads_no_jax_and_no_repro():
                 "repro_torch.core.update", "repro_torch.core.pipeline",
                 "repro_torch.configs.gnn_gcn", "repro_torch.configs.gnn_sage",
                 "repro_torch.configs.gnn_gat", "repro_torch.models.gnn.ops",
-                "repro_torch.models.gnn.models"):
+                "repro_torch.models.gnn.models", "repro_torch.ioutil",
+                "repro_torch.ooc", "repro_torch.ooc.store",
+                "repro_torch.ooc.stream", "repro_torch.ooc.shard",
+                "repro_torch.serve.async_engine", "repro_torch.checkpoint",
+                "repro_torch.checkpoint.checkpointer"):
         assert mod in got["modules"]
     assert got["loaded"] == []
 
@@ -112,3 +116,77 @@ def test_refresh_swap_and_the_other_kinds_are_ported():
     assert GraphDelta().summary()["edge_inserts"] == 0
     assert "dirty" in dir(PlanDelta)
     assert sorted(_LAYERS) == ["gat", "gcn", "sage"]
+
+
+def test_async_tier_out_of_core_and_checkpoints_are_ported():
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import IBMBPipeline
+    from repro_torch.ooc import PlanStore, ShardRouter, stream_plan
+    from repro_torch.serve import AsyncGNNEngine, GNNInferenceEngine
+    assert "out_of_core" in IBMBPipeline.plan.__code__.co_varnames
+    assert callable(GNNInferenceEngine.ooc_stats)
+    assert all(callable(f) for f in (
+        Checkpointer.auto_resume, PlanStore.read_batch, ShardRouter.load,
+        stream_plan, AsyncGNNEngine.swap))
+
+
+# The reference's analyzer scopes its write and determinism rules to
+# ``src/repro/`` paths, so it never reads the port. These tests present
+# the port's writers to those rules under the paths of the modules they
+# copy.
+_WRITERS = {
+    "src/repro_torch/ioutil.py": "src/repro/ioutil.py",
+    "src/repro_torch/core/plan.py": "src/repro/core/plan.py",
+    "src/repro_torch/checkpoint/checkpointer.py":
+        "src/repro/checkpoint/checkpointer.py",
+    "src/repro_torch/checkpoint/__init__.py":
+        "src/repro/checkpoint/__init__.py",
+    "src/repro_torch/ooc/__init__.py": "src/repro/ooc/__init__.py",
+    "src/repro_torch/ooc/store.py": "src/repro/ooc/store.py",
+    "src/repro_torch/ooc/stream.py": "src/repro/ooc/stream.py",
+    "src/repro_torch/ooc/shard.py": "src/repro/ooc/shard.py",
+}
+
+
+def _port_project(extra=None):
+    from repro.analysis.model import Project
+    sources = {}
+    for port, ref in _WRITERS.items():
+        with open(os.path.join(_ROOT, port), encoding="utf-8") as f:
+            sources[ref] = f.read()
+    sources.update(extra or {})
+    return Project.from_sources(sources)
+
+
+def _findings(checker_cls, project):
+    from repro.analysis.model import filter_allowed
+    kept, _suppressed = filter_allowed(checker_cls().run(project), project)
+    return [f"{f.path}:{f.line} {f.message}" for f in kept]
+
+
+def test_port_writers_pass_the_reference_s_write_and_determinism_rules():
+    from repro.analysis.atomic_write import AtomicWriteChecker
+    from repro.analysis.determinism import DeterminismChecker
+    from repro.analysis.determinism import in_scope
+    project = _port_project()
+    assert _findings(AtomicWriteChecker, project) == []
+    assert _findings(DeterminismChecker, project) == []
+    assert in_scope("src/repro/ooc/stream.py") and \
+        in_scope("src/repro/ooc/shard.py")
+
+
+def test_the_presented_rules_catch_a_plain_write_and_a_clock_read():
+    from repro.analysis.atomic_write import AtomicWriteChecker
+    from repro.analysis.determinism import DeterminismChecker
+    bad = {"src/repro/checkpoint/extra.py":
+           "def dump(p, s):\n    with open(p, 'w') as f:\n"
+           "        f.write(s)\n",
+           "src/repro/ooc/stream.py":
+           "import time\ndef stamp():\n    return time.time()\n"}
+    project = _port_project(bad)
+    assert [f.split(" ")[0] for f in _findings(AtomicWriteChecker,
+                                               project)] == \
+        ["src/repro/checkpoint/extra.py:2"]
+    assert [f.split(" ")[0] for f in _findings(DeterminismChecker,
+                                               project)] == \
+        ["src/repro/ooc/stream.py:3"]

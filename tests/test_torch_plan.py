@@ -1,6 +1,7 @@
 """The port builds the same Plan as the JAX package, bit for bit, and the
 two packages read each other's saved plans."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -90,3 +91,33 @@ def test_load_plan_refuses_other_config(tmp_path):
     with pytest.raises(PlanFormatError):
         other.load_plan(str(tmp_path / "ref.npz"), "test",
                         for_inference=True)
+
+
+# ------------------------------------------------ the plan_io fault point
+def test_save_under_injected_io_error_keeps_the_old_file(tmp_path):
+    from repro_torch.faults import FaultInjector
+    _ref, port = _plans("segment")
+    path = str(tmp_path / "plan.npz")
+    port.save(path)
+    with open(path, "rb") as f:
+        good = f.read()
+    with pytest.raises(OSError, match="plan_io"):
+        port.save(path, faults=FaultInjector(script={"plan_io": [0]}))
+    with open(path, "rb") as f:
+        assert f.read() == good                  # old artifact intact
+    assert not os.path.exists(path + ".tmp")     # no debris
+    _assert_same_plan(Plan.load(path, expect_fingerprint=port.fingerprint),
+                      port)
+
+
+@pytest.mark.parametrize("entry", ["open", "load"])
+def test_open_and_load_raise_under_injected_io_error(tmp_path, entry):
+    from repro_torch.faults import FaultInjector
+    _ref, port = _plans("segment")
+    path = str(tmp_path / "plan.npz")
+    port.save(path)
+    inj = FaultInjector(seed=3, script={"plan_io": [1]})
+    getattr(Plan, entry)(path, faults=inj)       # call 0: no fault
+    with pytest.raises(OSError, match="plan_io.*call 1.*seed 3"):
+        getattr(Plan, entry)(path, faults=inj)
+    assert inj.snapshot() == {"plan_io": {"calls": 2, "fired": 1}}
