@@ -73,28 +73,49 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               keeps the other batches in the LRU; a plan with damaged
               routing is refused and rolled back, and the engine answers
               bit-identically to before.
-8d. ooc     — the serving tiers, the GCN under a fixed bcsr policy on the
+8d. data-parallel — the GCN of phase train over a ``DataMesh`` of world
+              4 (4 cards when the machine has them, else the card four
+              times) under a fixed bcsr policy: ``fit(mesh=...)`` 2 epochs
+              (3 super-steps per epoch, one pad) bitwise the single-device
+              ``grad_accum=4`` fit and within 1e-4 of the same mesh fit on
+              the CPU, the exact SpMM launch count (pads included), the
+              seconds per epoch of both fits and the host seconds in
+              ``stack_batches``; ``executor.evaluate`` bitwise the single-
+              device evaluation; ``GNNInferenceEngine(mesh=...)`` on the
+              test Plan: 64 cold queries of 16 ids bitwise the single-
+              device engine with the exact super-step and launch counts,
+              then a swap to a second parameter set bitwise a fresh
+              engine on it.
+8e. influence — ``exact_influence`` (``torch.func.jacrev``) of a random
+              full-width GCN over the whole arxiv-like graph (segment
+              aggregation) for 4 seeded PPR roots of the test Plan: the
+              card's within 1e-4 of the largest influence of the CPU's
+              (computed over each root's 3-hop ball, where all of its
+              influence lies; the card's must be 0 outside it), and PPR's
+              stored top-k ranking those nodes like the influence (mean
+              Spearman above 0.5); seconds and peak card memory.
+8f. ooc     — the serving tiers, the GCN under a fixed bcsr policy on the
               test Plan: ``pipe.plan(out_of_core=True)`` streams it into a
               ``PlanStore`` (chunks of 1 batch), held to the resident Plan
               bit for bit; 32 cold queries from ``as_plan(resident_batches=
               1)`` on the card bit-identical to the resident engine
               (latency, ``ooc_stats``); a 2-shard build behind a
               ``ShardRouter`` answers them bit-identically too.
-8e. async   — ``AsyncGNNEngine`` (worker thread, ``SystemClock``) with a
+8g. async   — ``AsyncGNNEngine`` (worker thread, ``SystemClock``) with a
               resident tenant (v1 of refresh-swap's chain) and an
               out-of-core one (the store): 256 seeded requests, 32 with a
               deadline, the resident tenant swapped to v2 mid-stream; every
               answer bit-identical to the synchronous engine on its plan
               version, rows of untouched batches unchanged by the swap, and
               no reject, expiry, failure, retry, breaker open or restart.
-8f. async-faults — the same tier under a scripted ``FaultInjector``, one
+8h. async-faults — the same tier under a scripted ``FaultInjector``, one
               request at a time: retried and failing forwards, a breaker
               that opens on one tenant while the other serves and closes on
               the half-open probe, a worker death the watchdog restarts, a
               50 ms dispatch stall, a ``batch_io`` read retry; counters
               exact, answers bit-identical to the healthy path; then
               ``plan_io`` on ``Plan.save`` and ``Plan.load`` (the old file
-              intact). From 8d to here the SpMM launches equal 3 x the
+              intact). From 8f to here the SpMM launches equal 3 x the
               batch forwards of every engine these phases ran.
 9. flash-real — the flash-attention kernel at the llama3.2-1b prefill
               shape (B=1, 32 heads over 8 kv heads, S=4096, head dim 64,
@@ -197,6 +218,12 @@ PRODUCTS_NODES, PRODUCTS_FEATURES, GATHER_IDS = 2_449_029, 100, 1 << 20
 
 # clock cycles ``queued_ms`` holds the card for (about 50 ms on an H100)
 HOLD_CYCLES = 100_000_000
+
+# queries the mesh engine answers after its swap, against a fresh engine
+SWAP_QUERIES = 8
+# the learning rate of the mesh fit held card against CPU: large enough
+# that the 6 updates move the parameters by about 1e-2, far above ATOL
+CPU_FIT_SGD_LR = 0.1
 
 # the llama3.2-1b prefill: one sequence of 4096 tokens
 LM_ARCH, PREFILL_S = "llama3.2-1b", 4096
@@ -846,6 +873,332 @@ def checkpoint_phase(ctx) -> None:
           f"{manifest['step']}, bit-identical", flush=True)
 
 
+def same_history(a, b) -> bool:
+    """Two ``fit`` histories equal in every number but the wall clock."""
+    keys = ("epoch", "train_loss", "val_loss", "val_acc", "lr")
+    return len(a) == len(b) and all(
+        [x[k] for k in keys] == [y[k] for k in keys] for x, y in zip(a, b))
+
+
+def data_parallel_phase(ctx) -> None:
+    """The GCN at full width trained data-parallel over a world-4
+    ``DataMesh`` (4 cards when there are, else the card four times) under
+    a fixed bcsr policy: bitwise the single-device ``grad_accum=4`` fit,
+    the exact SpMM launch count; at dropout 0 with plain SGD within ATOL
+    of the same mesh fit on the CPU; mesh
+    evaluation bitwise the single-device one; the test Plan served through
+    the mesh engine bitwise the single-device engine (``ctx.
+    single_answers``: phase serve's answers to ``ctx.queries`` on the
+    same parameters), then after a swap to a second parameter set bitwise
+    a fresh single-device engine.
+
+    Each cold super-step of the engine stacks and stages 4 test batches
+    (1.4 GB) on one card, so the 64 cold queries go through one
+    coalesced ``run`` (one super-step) and ``query`` is held to the
+    single-device engine on four of them: two that span the test batches
+    (a super-step each) and two inside one batch (a lone miss each)."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import data_parallel
+    from repro_torch.dist.data_parallel import DataMesh, ShardedPlanExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models.gnn import BackendPolicy, init_gnn
+    from repro_torch.optim import tree_leaves
+    from repro_torch.serve import GNNInferenceEngine, GNNRequest
+    from repro_torch.train import GNNTrainer
+
+    dev, cfg, world = ctx.dev, ctx.cfg, 4
+    train, val, test = ctx.train_plan, ctx.val_plan, ctx.test_plan
+    policy = BackendPolicy.fixed("bcsr")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= world:
+        mesh, what = DataMesh([torch.device("cuda", i)
+                               for i in range(world)]), "4 distinct cards"
+    else:
+        mesh, what = DataMesh([dev] * world), f"{dev} four times"
+    print(f"mesh {mesh}: {what}", flush=True)
+
+    # host seconds in stack_batches, in the loader's worker and in stage
+    stack_s = []
+    real_stack = data_parallel.stack_batches
+
+    def timed_stack(host, idx):
+        t0 = time.perf_counter()
+        out = real_stack(host, idx)
+        stack_s.append(time.perf_counter() - t0)
+        return out
+
+    def fit(device, cfg_k=cfg, **kw):
+        trainer = GNNTrainer(cfg_k, backend=policy, device=device,
+                             **dict(dict(optimizer="adam", lr=1e-3),
+                                    **kw.pop("trainer", {})))
+        t0 = time.perf_counter()
+        res = trainer.fit(train, val, ctx.num_classes, epochs=2, **kw)
+        ctx.sync()
+        return res, time.perf_counter() - t0
+
+    def same_params(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b)))
+
+    build.reset_launches()
+    with unittest.mock.patch.object(data_parallel, "stack_batches",
+                                    timed_stack):
+        mesh_res, mesh_s = fit(dev, mesh=mesh)
+    counts = {k: v for k, v in build.launches.items() if v}
+    supersteps = -(-len(train) // world)
+    val_steps = -(-len(val) // world)
+    want = 2 * (2 * cfg.num_layers * world * supersteps
+                + cfg.num_layers * world * val_steps)
+    print(f"mesh fit: {len(train)} train batches in {supersteps} "
+          f"super-steps per epoch ({supersteps * world - len(train)} pad), "
+          f"{len(val)} val batches in {val_steps}; {mesh_s:.3f} s, "
+          f"{mesh_res.time_per_epoch:.3f} s per epoch without evaluation; "
+          f"stack_batches {sum(stack_s):.3f} s on the host over "
+          f"{len(stack_s)} calls; launches {counts} (want spmm_bcsr "
+          f"{want} = 2 epochs x (2 x {cfg.num_layers} layers x {world} "
+          f"members x {supersteps} super-steps + {cfg.num_layers} x "
+          f"{world} x {val_steps}), pads included)", flush=True)
+    # (a CPU rehearsal of this phase runs the plain path: no launches)
+    if dev.type == "cuda" and counts != {"spmm_bcsr": want}:
+        raise AssertionError(f"launches {counts}, want spmm_bcsr {want}")
+    for h in mesh_res.history:
+        print(f"mesh epoch {h['epoch']}: train_loss {h['train_loss']:.6f} "
+              f"val_loss {h['val_loss']:.6f} val_acc {h['val_acc']:.4f}",
+              flush=True)
+
+    acc_res, acc_s = fit(dev, trainer={"grad_accum": world})
+    bitwise = same_history(mesh_res.history, acc_res.history) and \
+        same_params(mesh_res.params, acc_res.params)
+    print(f"grad_accum={world} fit on {dev}: {acc_s:.3f} s, "
+          f"{acc_res.time_per_epoch:.3f} s per epoch without evaluation; "
+          f"mesh fit bitwise equal: {bitwise}", flush=True)
+    if not bitwise:
+        worst = max((a - b).abs().max().item() for a, b in zip(
+            tree_leaves(mesh_res.params), tree_leaves(acc_res.params)))
+        raise AssertionError(f"the mesh fit differs from grad_accum="
+                             f"{world}: params by up to {worst:.3e}, "
+                             f"histories {mesh_res.history} vs "
+                             f"{acc_res.history}")
+
+    # the card against the CPU: dropout 0, since each device's generator
+    # draws its own masks, and plain SGD, since Adam's first steps divide
+    # each gradient by its own magnitude and so turn an f32 summation-
+    # order difference in a near-zero gradient into a difference of up to
+    # lr in the parameter (tools/fit_card_vs_cpu.py)
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    sgd = {"optimizer": "sgd", "lr": CPU_FIT_SGD_LR}
+    card0, card0_s = fit(dev, cfg0, mesh=mesh, trainer=sgd)
+    cpu0, cpu0_s = fit(torch.device("cpu"), cfg0, trainer=sgd,
+                       mesh=DataMesh(["cpu"] * world))
+    worst = max(abs(a[k] - b[k]) for a, b in zip(card0.history,
+                                                   cpu0.history)
+                for k in ("train_loss", "val_loss", "val_acc"))
+    for a, b in zip(tree_leaves(card0.params), tree_leaves(cpu0.params)):
+        worst = max(worst, (a.cpu() - b).abs().max().item())
+        torch.testing.assert_close(a.cpu(), b, atol=ATOL, rtol=RTOL)
+    for a, b in zip(card0.history, cpu0.history):
+        for k in ("train_loss", "val_loss", "val_acc"):
+            np.testing.assert_allclose(a[k], b[k], atol=ATOL, rtol=RTOL)
+    moved = max((a.cpu() - b).abs().max().item() for a, b in zip(
+        tree_leaves(card0.params), tree_leaves(
+            GNNTrainer(cfg0, device="cpu").init_params())))
+    print(f"dropout 0, SGD at lr {CPU_FIT_SGD_LR}: the mesh fit on {dev} "
+          f"({card0_s:.3f} s) against the same mesh fit on the CPU "
+          f"({cpu0_s:.3f} s): params and history max_abs_err {worst:.3e}; "
+          f"the parameters moved by up to {moved:.3e}", flush=True)
+
+    ex = ShardedPlanExecutor(mesh, cfg, backend=policy)
+    got = ex.evaluate(ex.replicate(mesh_res.params), val.cache,
+                      decisions=ex.decisions(val))
+    single = GNNTrainer(cfg, backend=policy, device=dev).evaluate(
+        mesh_res.params, val)
+    print(f"executor.evaluate on the val plan: {got}; single device "
+          f"{single}", flush=True)
+    if got != single:
+        raise AssertionError("mesh evaluation differs from the single-"
+                             "device evaluation")
+
+    p1 = init_gnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    p2 = init_gnn(cfg, torch.Generator().manual_seed(1), device=dev)
+    em = GNNInferenceEngine(test, cfg, p1, backend=policy, cache_batches=0,
+                            mesh=mesh)
+    e1 = GNNInferenceEngine(test, cfg, p1, backend=policy, cache_batches=0,
+                            device=dev)
+    rb = np.asarray(test.routing.batch)
+    inside = [test.routing.node_ids[rb == bi][:16] for bi in (0, len(test)
+                                                              - 1)]
+    singles = list(ctx.queries[:2]) + inside
+
+    def misses(q):
+        """(super-steps, lone forwards) of a cold miss set: full groups
+        of `world`, a rest of 2 or more padded, a rest of 1 alone."""
+        full, rest = divmod(len(np.unique(test.routing.lookup(
+            np.asarray(q))[0])), world)
+        return full + (rest >= 2), int(rest == 1)
+
+    plan_steps = [misses(np.concatenate(ctx.queries))] + \
+        [misses(q) for q in singles]
+    want_steps = sum(s for s, _ in plan_steps)
+    want = cfg.num_layers * sum(world * s + lone for s, lone in plan_steps)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [GNNRequest(node_ids=q) for q in ctx.queries]
+    em.run(reqs)
+    ctx.sync()
+    run_s = time.perf_counter() - t0
+    got = [em.query(q) for q in singles]
+    ctx.sync()
+    counts = {k: v for k, v in build.launches.items() if v}
+    if any(r.logits.tobytes() != a.tobytes()
+           for r, a in zip(reqs, ctx.single_answers)) or any(
+            g.tobytes() != a.tobytes() for g, a in zip(
+                got, list(ctx.single_answers[:2]) +
+                [e1.query(q) for q in inside])):
+        raise AssertionError("a mesh answer differs from the single-device "
+                             "engine's")
+    print(f"mesh engine: {len(reqs)} cold requests of 16 ids in one run() "
+          f"({run_s:.3f} s), then 4 query() calls (2 spanning batches, 2 "
+          f"inside one), bit-identical to the single-device engine; "
+          f"(super-steps, lone misses) {plan_steps}; supersteps "
+          f"{em.stats['supersteps']} (want {want_steps}), batch_runs "
+          f"{em.stats['batch_runs']}; launches {counts} (want spmm_bcsr "
+          f"{want} = {cfg.num_layers} layers x ({world} members a "
+          f"super-step + 1 a lone miss))", flush=True)
+    if em.stats["supersteps"] != want_steps or (
+            dev.type == "cuda" and counts != {"spmm_bcsr": want}):
+        raise AssertionError(f"supersteps {em.stats['supersteps']}, "
+                             f"launches {counts}")
+    em.params = p2
+    em.swap(test)
+    reqs = [GNNRequest(node_ids=q) for q in ctx.queries[:SWAP_QUERIES]]
+    em.run(reqs)
+    fresh = GNNInferenceEngine(test, cfg, p2, backend=policy,
+                               cache_batches=0, device=dev)
+    if any(r.logits.tobytes() != fresh.query(r.node_ids).tobytes()
+           for r in reqs):
+        raise AssertionError("after the swap the mesh engine differs from "
+                             "a fresh engine on the new parameters")
+    if not all(same_params(rep, em.params) for rep in em._replicas):
+        raise AssertionError("a replica kept the old parameters")
+    print(f"swap to a second parameter set: {SWAP_QUERIES} requests "
+          f"bit-identical to a fresh single-device engine, every replica "
+          f"holds the new parameters; stats "
+          f"{ {k: em.stats[k] for k in ('supersteps', 'swap_count')} }",
+          flush=True)
+
+
+def influence_phase(ctx) -> None:
+    """``exact_influence`` of a randomly initialized full-width GCN over the
+    whole graph (segment aggregation, no LayerNorm, as
+    ``tests/test_influence.py``) for 4 seeded output nodes among the test
+    Plan's PPR roots: the card's against the CPU's within ATOL relative to
+    the largest influence, and PPR ranking the top-k nodes it stored like
+    the influence does (mean Spearman correlation above 0.5).
+
+    The CPU computes each node's influence over the subgraph induced by
+    the nodes within ``num_layers`` hops of it: a node farther away has no
+    path of ``num_layers`` edges to it, and every node that reaches it
+    within ``num_layers - 1`` hops has all its neighbours inside, so the
+    subgraph gives the same influence for a few thousand nodes where the
+    whole graph has 20,000. The card's influence outside must be 0."""
+    import numpy as np
+    import torch
+    from repro_torch.core.influence import exact_influence
+    from repro_torch.models.gnn import init_gnn, ops
+
+    ds, cfg, dev = ctx.ds, ctx.cfg, ctx.dev
+    adj = ds.norm_graph.to_scipy().tocsr()
+    params = init_gnn(cfg, torch.Generator().manual_seed(3), device="cpu")
+
+    def apply_on(sub, device):
+        """The full-graph forward over the edges of ``sub``."""
+        m = sub.tocoo()
+        src, dst, w = (torch.as_tensor(a, device=device) for a in (
+            m.row.astype(np.int32), m.col.astype(np.int32),
+            m.data.astype(np.float32)))
+        layers = [{k: v.to(device) for k, v in p.items()}
+                  for p in params["layers"]]
+
+        def apply_fn(feats):
+            h = feats
+            for l, p in enumerate(layers):
+                h = ops.weighted_agg(h @ p["w"], src, dst, w) + p["b"]
+                if l < len(layers) - 1:
+                    h = torch.relu(h)
+            return h
+
+        return apply_fn
+
+    def ball(u):
+        """The nodes within ``num_layers`` hops of u, u first."""
+        seen, frontier = {u}, [u]
+        for _ in range(cfg.num_layers):
+            nxt = set(adj[frontier].indices.tolist()) - seen
+            seen |= nxt
+            frontier = sorted(nxt)
+        return np.array([u] + sorted(seen - {u}), np.int64)
+
+    ppr = ctx.test_plan.ppr
+    rows = np.random.default_rng(5).choice(len(ppr.roots), 4, replace=False)
+    card_fn = apply_on(adj, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cors, card_s, cpu_s, worst = [], [], 0.0, 0.0
+    for r in rows:
+        u = int(ppr.roots[r])
+        t0 = time.perf_counter()
+        got = exact_influence(card_fn, ds.features, u, device=dev)
+        card_s.append(time.perf_counter() - t0)
+        near = ball(u)
+        t0 = time.perf_counter()
+        want = np.zeros_like(got)
+        want[near] = exact_influence(
+            apply_on(adj[near][:, near], torch.device("cpu")),
+            ds.features[near], 0, device="cpu")
+        cpu_s += time.perf_counter() - t0
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max()) / scale
+        worst = max(worst, err)
+        outside = np.ones(len(got), bool)
+        outside[near] = False
+        if not err <= ATOL or got[outside].any():
+            raise AssertionError(f"node {u}: card vs CPU influence differs "
+                                 f"by {err:.3e} of the largest, "
+                                 f"{int((got[outside] != 0).sum())} "
+                                 f"nonzero outside its ball")
+        idx, val = ppr.row(r)
+        keep = got[idx] > 0
+        cor = spearman(np, got[idx][keep], val[keep])
+        cors.append(cor)
+        print(f"output node {u}: {int((got > 0).sum())} nodes of "
+              f"{ds.num_nodes} with nonzero influence, {len(near)} within "
+              f"{cfg.num_layers} hops; top-{len(idx)} PPR nodes, "
+              f"{int(keep.sum())} with nonzero influence, Spearman "
+              f"{cor:.3f}; {card_s[-1]:.3f} s on the card", flush=True)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else 0
+    print(f"exact_influence of a {cfg.num_layers}-layer width-{cfg.hidden} "
+          f"GCN over {ds.num_nodes} nodes x {ds.feat_dim} features, "
+          f"{adj.nnz} edges: {np.mean(card_s):.3f} s per output node on "
+          f"the card, {cpu_s / len(rows):.3f} s on the CPU over its "
+          f"ball; peak card memory {peak / 2**30:.2f} GiB; card vs CPU "
+          f"max err {worst:.3e} of the largest influence; mean Spearman "
+          f"{np.mean(cors):.3f}", flush=True)
+    if not np.mean(cors) > 0.5:
+        raise AssertionError(f"PPR should rank like influence, got {cors}")
+
+
+def spearman(np, a, b) -> float:
+    """Spearman's rank correlation (tests/test_influence.py)."""
+    ra = np.argsort(np.argsort(a))
+    rb = np.argsort(np.argsort(b))
+    ra = ra - ra.mean()
+    rb = rb - rb.mean()
+    return float((ra * rb).sum() / np.sqrt((ra ** 2).sum()
+                                           * (rb ** 2).sum()))
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"{SRC}/repro_torch not found: run from the root of a checkout")
@@ -1488,6 +1841,7 @@ def main() -> None:
         for a in answers + [r.logits for r in reqs]:
             if a.shape != (16, cfg.out_dim) or not np.isfinite(a).all():
                 raise AssertionError(f"bad logits: shape {a.shape}")
+        serve_answers = answers            # the mesh engine's yardstick
 
         # one whole batch against the plain path on the CPU
         b0 = plan.routing.node_ids[plan.routing.batch == 0]
@@ -1781,6 +2135,19 @@ def main() -> None:
               f"{eng.stats['swap_rollbacks']}, audit {eng.swap_audit[-1]}",
               flush=True)
         del eng, params
+
+    # the GCN data-parallel over a world-4 mesh, and exact influence
+    dp_ctx = types.SimpleNamespace(
+        dev=dev, ds=ds, cfg=cfg, train_plan=train_plan, val_plan=val_plan,
+        test_plan=plans["test"], num_classes=ds.num_classes,
+        queries=queries, single_answers=serve_answers,
+        sync=torch.cuda.synchronize)
+
+    with phase("data-parallel"):
+        data_parallel_phase(dp_ctx)
+
+    with phase("influence"):
+        influence_phase(dp_ctx)
 
     # the serving tiers: the GCN under a fixed bcsr policy on the test
     # Plan, streamed to disk, sharded and behind the async tier; their

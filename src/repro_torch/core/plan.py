@@ -1,9 +1,8 @@
 """The frozen, serializable preprocessing artifact — ``Plan`` (DESIGN.md §8).
 
 The port's copy of ``repro.core.plan``, with the ``plan_io`` fault hooks of
-``save``/``open``/``load``. It leaves out ``Plan.supersteps`` (it waits for
-the multi-GPU slice, see ROADMAP.md); the npz format is unchanged, so either
-package loads the other's artifacts.
+``save``/``open``/``load``; the npz format is unchanged, so either package
+loads the other's artifacts.
 
 The paper's headline amortization is that preprocessing is computed ONCE and
 reused across models, seeds and runs. A ``Plan`` makes that reuse a
@@ -335,6 +334,16 @@ class Plan:
         return (self.cache.nbytes() + self.schedule.nbytes +
                 self.routing.node_ids.nbytes + self.routing.batch.nbytes +
                 self.routing.row.nbytes + extra)
+
+    def supersteps(self, world: int) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Group this plan's precomputed schedule into `world`-sized
+        super-steps for data-parallel execution (DESIGN.md §9): a list of
+        ``(batch indices, weights)`` pairs where the ragged tail repeats
+        the last real batch with weight 0. All batches of a plan share one
+        padded shape bucket (the BatchCache invariant), which is what lets
+        a super-step's members stack into one array per field."""
+        from repro_torch.dist.data_parallel import superstep_indices
+        return superstep_indices(self.schedule, world)
 
     # ------------------------------------------------------ construction
     @staticmethod

@@ -12,6 +12,11 @@ tensor, so the caching allocator never hands a staged buffer to another
 stream while the step still reads it. Copies are from pageable host memory
 (pinned buffers are ROADMAP.md Queue 4 item 8).
 
+With ``group`` (super-step staging, DESIGN.md §9) the worker stacks
+``group`` batches on the host and stages them as one super-step; with a
+``DataMesh`` as ``device`` member j lands on mesh entry j, as
+``ShardedPlanExecutor.stage`` places it.
+
 Shutdown is sentinel/Event based: a consumer that abandons the iterator
 early (break, exception, GC) triggers the generator's ``finally``, which
 sets the cancel event; the worker only ever blocks on ``q.put`` with a
@@ -22,7 +27,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,10 +42,13 @@ Staged = Tuple[Dict[str, torch.Tensor], Optional[torch.cuda.Event]]
 
 def stage_batch(batch: Mapping[str, np.ndarray], device: torch.device,
                 stream: Optional[torch.cuda.Stream] = None) -> Staged:
-    """Copy one batch's host arrays to ``device``; on CUDA, on ``stream``,
-    returning the event that marks the copies' end (None on the CPU)."""
+    """Copy one batch's host arrays to ``device``; on CUDA, on ``stream``
+    (``device``'s current stream when None), returning the event that
+    marks the copies' end (None on the CPU)."""
     if device.type != "cuda":
         return {k: to_tensor(v, device) for k, v in batch.items()}, None
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
     with torch.cuda.stream(stream):
         out = {k: to_tensor(v, device) for k, v in batch.items()}
         done = torch.cuda.Event()
@@ -60,6 +68,34 @@ def consume(staged: Staged, device: torch.device) -> Dict[str, torch.Tensor]:
     return batch
 
 
+def stage_superstep(stacked: Mapping[str, np.ndarray],
+                    devices: Sequence[torch.device],
+                    streams: Optional[Mapping] = None
+                    ) -> List[Tuple[Staged, torch.device]]:
+    """Stage one stacked super-step for members on ``devices``: one copy
+    per field of the stacked arrays when every member shares one device
+    (the members are then views of it), else one copy per member and field
+    onto the member's own device. ``streams`` maps a device to its side
+    stream (None: the current stream)."""
+    streams = streams or {}
+    if len(set(devices)) == 1:
+        dev = devices[0]
+        return [(stage_batch(stacked, dev, streams.get(dev)), dev)]
+    return [(stage_batch({k: v[j] for k, v in stacked.items()}, dev,
+                         streams.get(dev)), dev)
+            for j, dev in enumerate(devices)]
+
+
+def consume_superstep(parts: Sequence[Tuple[Staged, torch.device]]
+                      ) -> Dict:
+    """The staged super-step, each field indexable by member: a stacked
+    tensor when the members share a device, else a list of tensors."""
+    if len(parts) == 1:
+        return consume(*parts[0])
+    members = [consume(staged, dev) for staged, dev in parts]
+    return {k: [m[k] for m in members] for k in members[0]}
+
+
 class PrefetchLoader:
     """Iterate device-resident batches in `order`, prefetch depth 1 (paper:
     more workers don't help — memory bandwidth is shared).
@@ -69,18 +105,30 @@ class PrefetchLoader:
     straight from its contiguous cache and, when no explicit `order` is
     given, iterated in the plan's precomputed schedule order. `device` is
     ``cuda`` unless the caller names another; without a card that raises.
-    `group` (super-step staging, DESIGN.md §9) is not ported yet."""
+
+    `group` switches to super-step staging (DESIGN.md §9): the loader
+    yields `(stacked_batch, weights)` pairs of `group` batches each —
+    every field gains a leading axis of length `group`, the ragged tail
+    repeats the last real batch with weight 0 (`weights` is a host
+    float32 array) — and `device` may be a ``DataMesh``, whose members
+    take one batch each (``stage_superstep``), so the stack and staging
+    of super-step t+1 overlap with the compute of super-step t."""
 
     def __init__(self, batches,
                  order: Optional[np.ndarray] = None,
                  device: DeviceSpec = None,
                  prefetch: int = 1, group: Optional[int] = None,
                  faults=NO_FAULTS):
-        if group is not None:
-            raise NotImplementedError(
-                "super-step staging (group=) is not ported yet (ROADMAP.md, "
-                "Queue 1 item 1: Plan.supersteps and data parallel)")
-        self.device = resolve_device(device)
+        from repro_torch.dist.data_parallel import DataMesh
+        if isinstance(device, DataMesh):
+            self.members = device.members
+            if group is not None and group != len(self.members):
+                raise ValueError(f"group={group} but the mesh has "
+                                 f"{len(self.members)} members")
+        else:
+            self.members = None
+            device = resolve_device(device)
+        self.device = device
         plan_schedule = getattr(batches, "schedule", None)
         cache = getattr(batches, "cache", None)
         if cache is not None:                    # Plan → its contiguous cache
@@ -102,23 +150,51 @@ class PrefetchLoader:
         self.batches = batches
         self.order = order
         self.prefetch = max(1, prefetch)
+        self.group = group if self.members is None else len(self.members)
         self.faults = faults            # "loader" injection point (§12)
         self.failed: Optional[BaseException] = None   # last worker error
         self._worker: Optional[threading.Thread] = None  # most recent; tests
 
     def __len__(self) -> int:
+        if self.group:
+            return -(-len(self.order) // self.group)     # super-steps
         return len(self.order)
 
     def _items(self):
-        for i in self.order:
+        """What the worker stages: per-batch dicts, or (stacked, weights)
+        super-steps when `group` is set."""
+        if not self.group:
+            for i in self.order:
+                self.faults.fire("loader")
+                yield self.batches[int(i)]
+            return
+        from repro_torch.dist.data_parallel import (
+            stack_batches, superstep_indices)
+        for idx, w in superstep_indices(self.order, self.group):
             self.faults.fire("loader")
-            yield self.batches[int(i)]
+            yield stack_batches(self.batches, idx), w
 
-    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+    def __iter__(self) -> Iterator:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         cancel = threading.Event()
-        stream = torch.cuda.Stream(self.device) \
-            if self.device.type == "cuda" else None
+        # the members' devices (one device when not on a mesh), with one
+        # side stream per distinct card
+        devices = self.members or [self.device]
+        streams = {d: torch.cuda.Stream(d) for d in set(devices)
+                   if d.type == "cuda"}
+
+        def stage(item):
+            if not self.group:
+                return stage_batch(item, self.device,
+                                   streams.get(self.device))
+            stacked, w = item
+            return stage_superstep(stacked, devices, streams), w
+
+        def ready(staged):
+            if not self.group:
+                return consume(staged, self.device)
+            staged, w = staged
+            return consume_superstep(staged), w
 
         def put(item) -> bool:
             """Blocking put that aborts when the consumer cancels."""
@@ -135,7 +211,7 @@ class PrefetchLoader:
                 for item in self._items():
                     if cancel.is_set():
                         return
-                    if not put(stage_batch(item, self.device, stream)):
+                    if not put(stage(item)):
                         return
                 put(_STOP)
             except BaseException as e:   # surface in the consumer, never hang
@@ -152,7 +228,7 @@ class PrefetchLoader:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                yield consume(item, self.device)
+                yield ready(item)
         finally:
             # reached on exhaustion AND on early exit (GeneratorExit)
             cancel.set()

@@ -22,13 +22,12 @@ cannot live in a global string, so the override arg now accepts a policy:
 returns the adjusted model config plus the policy. Consumers then key their
 forwards by ``(backend, block_f)`` per batch.
 
-The port's copy of ``repro.models.gnn.policy`` (pure Python), without
-``superstep_decision``, which waits for the multi-GPU slice.
+The port's copy of ``repro.models.gnn.policy`` (pure Python).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 from repro_torch.models.gnn import ops as gnn_ops
 
@@ -139,3 +138,21 @@ def batch_decisions(host, policy: BackendPolicy, model_cfg
     return [("bcsr", bf) if _has_tiles(host[i]) else ("segment", 0)
             for i in range(n)]
 
+
+
+def superstep_decision(decisions: Sequence[Tuple[str, int]],
+                       idx) -> Tuple[str, int]:
+    """One decision for a data-parallel super-step (DESIGN.md §9): its
+    members run one closure set, so they must share a backend. Uniform
+    groups keep their decision; mixed groups fall back to segment (always
+    executable — the schedule groups consecutive batches, and the
+    autotuner's decisions are strongly run-length-uniform in practice, so
+    this is the rare tail).
+    """
+    got = {decisions[int(i)] for i in idx}
+    if len(got) == 1:
+        return next(iter(got))
+    backends = {b for b, _ in got}
+    if len(backends) == 1:                   # same backend, mixed block_f
+        return (next(iter(backends)), 0)
+    return ("segment", 0)

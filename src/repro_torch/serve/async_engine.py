@@ -2,7 +2,8 @@
 (DESIGN.md §11).
 
 The port's copy of ``repro.serve.async_engine``, unchanged but for its
-imports. The tier only schedules: each tenant is a port
+imports and one repair: ``snapshot`` reads each tenant's engine under the
+tenant's lock. The tier only schedules: each tenant is a port
 ``GNNInferenceEngine`` on its own device, and with ``start=True`` the
 worker thread runs their forwards (and so launches the CUDA kernels).
 
@@ -581,16 +582,30 @@ class AsyncGNNEngine:
         """Consistent ``ServeStats`` view plus per-tenant serving counters
         (the §10 per-version tables ride along unchanged) and the fault
         surface (DESIGN.md §12): degradation counters, per-tenant breaker
-        state, and — when an injector is attached — what it injected."""
+        state, and — when an injector is attached — what it injected.
+
+        Each tenant's engine counters are read under that tenant's lock,
+        the lock its window holds around ``engine.run``, so a snapshot
+        waits for a window in flight instead of iterating an out-of-core
+        LRU the window is changing (the reference reads them under
+        ``_cond`` alone and can raise ``OrderedDict mutated during
+        iteration``). The tenant locks are taken one at a time and never
+        with ``_cond`` held, as ``_dispatch`` and ``swap`` take them, so no
+        lock order can deadlock."""
+        engines = {}
+        for name, t in self._tenants.items():
+            with t.lock:
+                # out-of-core tenants also report lazy-cache
+                # faulting/eviction/IO counters (DESIGN.md §13)
+                engines[name] = (copy.deepcopy(t.engine.stats),
+                                 t.engine.ooc_stats())
         with self._cond:
             d = self.stats.snapshot()
             d["service_estimate_us"] = self._svc_us
             d["tenants"] = {
                 name: {"swaps": t.swaps, "pending": len(t.pending),
-                       "engine": copy.deepcopy(t.engine.stats),
-                       # out-of-core tenants also report lazy-cache
-                       # faulting/eviction/IO counters (DESIGN.md §13)
-                       "ooc": t.engine.ooc_stats(),
+                       "engine": engines[name][0],
+                       "ooc": engines[name][1],
                        "breaker": (t.breaker.snapshot()
                                    if t.breaker is not None else None)}
                 for name, t in self._tenants.items()}

@@ -31,8 +31,15 @@ Out-of-core plans (DESIGN.md §13): a plan from ``PlanStore.as_plan`` or
 read through its ``LazyBatchCache`` and staged like a resident one — and
 ``ooc_stats`` reports the lazy cache's counters.
 
+Mesh serving (DESIGN.md §9): with ``mesh=`` (a ``DataMesh``) concurrent
+requests coalesce ACROSS the mesh's members — missing batches are grouped
+one per member and answered by one forward super-step
+(``ShardedPlanExecutor``), each member on its own parameter replica. The
+replicas are explicit copies, so assigning ``params`` and every ``swap``
+(a rollback included) re-replicate the master parameters.
+
 The engine is single-threaded; ``AsyncGNNEngine`` serializes its calls
-per tenant. Not ported yet (ROADMAP.md): ``mesh=`` serving.
+per tenant.
 """
 from __future__ import annotations
 
@@ -69,24 +76,31 @@ class GNNInferenceEngine:
     requests, coalescing all requests that touch the same precomputed batch
     into one forward pass. Per-batch output logits are LRU-cached
     (``cache_batches`` entries) so repeat traffic skips the forward.
-    ``params`` are moved to ``device``.
+    ``params`` are moved to ``device``; with a ``mesh`` the device is the
+    mesh's first member and every member serves from its own replica.
     """
 
     def __init__(self, plan: Plan, model_cfg: GNNConfig, params,
                  backend=None, cache_batches: int = 8,
                  mesh=None, clock=None, device: DeviceSpec = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP.md, multi-GPU "
-                "super-steps)")
-        self.device = resolve_device(device)
         # `backend` is a name, "auto", or a BackendPolicy (DESIGN.md §14)
         model_cfg, self.policy = gnn_policy.resolve(model_cfg, backend)
+        # mesh serving (DESIGN.md §9): missing batches are grouped one per
+        # member and answered by a single forward super-step
+        self._ex = None
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass mesh= or device=, not both: a mesh "
+                                 "engine runs on the mesh's first member")
+            from repro_torch.dist.data_parallel import ShardedPlanExecutor
+            self._ex = ShardedPlanExecutor(mesh, model_cfg,
+                                           backend=self.policy)
+            self.device = self._ex.device
+        else:
+            self.device = resolve_device(device)
         self.plan = plan
         self.cfg = model_cfg
-        self.params = {"layers": [
-            {k: torch.as_tensor(v).to(self.device) for k, v in layer.items()}
-            for layer in params["layers"]]}
+        self.params = params
         # request-latency timing through the injectable clock (DESIGN.md §11)
         self.clock = clock if clock is not None else SystemClock()
         self.cache_batches = max(0, cache_batches)
@@ -100,9 +114,9 @@ class GNNInferenceEngine:
         self._decisions = gnn_policy.batch_decisions(plan, self.policy,
                                                      model_cfg)
         self._lru: "OrderedDict[int, np.ndarray]" = OrderedDict()
-        self.stats: Dict = dict(requests=0, nodes=0, batch_runs=0,
-                                lru_hits=0, evictions=0, swap_count=0,
-                                swap_rollbacks=0, versions={})
+        self.stats: Dict = dict(
+            requests=0, nodes=0, batch_runs=0, lru_hits=0, supersteps=0,
+            evictions=0, swap_count=0, swap_rollbacks=0, versions={})
         # audit trail of swap attempts (DESIGN.md §12): one record per call,
         # including refused swaps that rolled back to the parent version
         self.swap_audit: List[Dict] = []
@@ -114,6 +128,25 @@ class GNNInferenceEngine:
         self._base_key = (model_cfg.backend,
                           int(getattr(model_cfg, "bcsr_block_f", 0)))
         self._forward = self._build_forward(*self._base_key)
+
+    @property
+    def params(self):
+        """The master parameters, on ``self.device``."""
+        return self._params
+
+    @params.setter
+    def params(self, tree) -> None:
+        """Place ``tree`` on the device and, on a mesh, re-replicate it."""
+        self._params = {"layers": [
+            {k: torch.as_tensor(v).to(self.device) for k, v in layer.items()}
+            for layer in tree["layers"]]}
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """Copy the master parameters to every mesh member (a no-op off a
+        mesh): the replicas must never serve another version."""
+        self._replicas = None if self._ex is None \
+            else self._ex.replicate(self._params)
 
     def _build_forward(self, backend: str, block_f: int):
         cfg = gnn_policy.batch_config(self.cfg, backend, block_f)
@@ -152,7 +185,10 @@ class GNNInferenceEngine:
         fails :func:`repro_torch.core.plan.check_routing` or whose batches
         lack what the backend needs. Any failure leaves the engine serving
         the plan it had, appends a rollback record to ``swap_audit`` and
-        re-raises. Returns ``{"invalidated": ..., "kept": ...}``.
+        re-raises. Returns ``{"invalidated": ..., "kept": ...}``. On a
+        mesh, a swap and its rollback alike re-replicate ``params``: in JAX
+        the mesh forward replicates whatever the engine holds, here the
+        replicas are copies.
         """
         prev = (self.plan, self._lru, self._vstats, self._decisions)
         try:
@@ -199,6 +235,8 @@ class GNNInferenceEngine:
                 refused_version=getattr(plan, "version", None),
                 reason=f"{type(e).__name__}: {e}"))
             raise
+        finally:
+            self._replicate()
         self.swap_audit.append(dict(
             ok=True, from_version=getattr(prev[0], "version", 0),
             to_version=getattr(plan, "version", 0),
@@ -230,12 +268,7 @@ class GNNInferenceEngine:
         if served:
             self._vstats["hit_rate"] = self._vstats["lru_hits"] / served
 
-    def _run_batch(self, bi: int) -> np.ndarray:
-        """Forward one precomputed batch on the device; host logits of its
-        output rows, entered into the LRU."""
-        fwd = self._forward_for(*self._decisions[bi])
-        out = fwd(self.params, stage(self.plan.cache[bi], self.device))
-        out = out.cpu().numpy()
+    def _lru_put(self, bi: int, out: np.ndarray) -> np.ndarray:
         self._bump(batch_runs=1)
         if self.cache_batches:
             self._lru[bi] = out
@@ -244,17 +277,53 @@ class GNNInferenceEngine:
                 self.stats["evictions"] += 1
         return out
 
+    def _flush_misses(self, missing):
+        """Compute the logits of `missing` (≤ world batches), yielding
+        (bi, host logits of its output rows). A lone miss skips the
+        super-step machinery — padding it to `world` identical copies would
+        waste world−1 members' staging and compute — and runs the plain
+        per-batch forward on the mesh's first device instead."""
+        if len(missing) == 1 or self._ex is None:
+            for bi in missing:
+                fwd = self._forward_for(*self._decisions[bi])
+                out = fwd(self.params, stage(self.plan.cache[bi],
+                                             self.device))
+                yield bi, self._lru_put(bi, out.cpu().numpy())
+            return
+        from repro_torch.dist.data_parallel import superstep_indices
+        (idx, w), = superstep_indices(np.asarray(missing), self._ex.world)
+        fns = self._ex.steps_for(
+            *gnn_policy.superstep_decision(self._decisions, idx))
+        batch, _w = self._ex.stage(self.plan.cache, idx, w)
+        lg = [out.cpu().numpy()
+              for out in fns.forward(self._replicas, batch)]
+        self.stats["supersteps"] += 1
+        for j in range(len(idx)):
+            if w[j] > 0:
+                yield int(idx[j]), self._lru_put(int(idx[j]), lg[j])
+
     def _iter_logits(self, need):
         """Yield (bi, output-row logits) for every batch index in `need`,
-        through the LRU; misses run one forward each."""
+        through the LRU. Misses run coalesced — one batch per member per
+        super-step when a mesh is configured — but are flushed chunk by
+        chunk, so peak host memory beyond the LRU stays at O(world) batch
+        outputs however many batches a request set touches (the caller
+        scatters each batch's rows and drops the reference)."""
+        world = self._ex.world if self._ex is not None else 1
+        missing: List[int] = []
         for bi in need:
             bi = int(bi)
             if bi in self._lru:
                 self._lru.move_to_end(bi)
                 self._bump(lru_hits=1)
                 yield bi, self._lru[bi]
-            else:
-                yield bi, self._run_batch(bi)
+                continue
+            missing.append(bi)
+            if len(missing) == world:
+                yield from self._flush_misses(missing)
+                missing = []
+        if missing:
+            yield from self._flush_misses(missing)
 
     # -------------------------------------------------------------- queries
     def query(self, node_ids: Sequence[int]) -> np.ndarray:

@@ -6,7 +6,8 @@ patience, cooldown) on val loss, early stop on val loss, batch scheduling
 (TSP / weighted / none), optional gradient accumulation, mini-batched
 evaluation with the SAME method used for training ("since full inference
 is too slow to execute every epoch"), and the non-finite gradient guard
-(DESIGN.md §12).
+(DESIGN.md §12). ``fit(mesh=...)`` runs the Plan data-parallel over a
+``repro_torch.dist.data_parallel.DataMesh`` (DESIGN.md §9).
 
 Each step runs eagerly on the trainer's device (``cuda`` unless the caller
 passes another). Batches are staged by ``PrefetchLoader`` on a side stream
@@ -242,6 +243,32 @@ class GNNTrainer:
         n = max(tot_n, 1.0)
         return {"loss": tot_l / n, "acc": tot_a / n}
 
+    def _mesh_epoch(self, executor, host, order, decisions, params, replicas,
+                    opt_state, base: int, ep: int):
+        """One epoch of super-steps (DESIGN.md §9). Member j of super-step
+        si is global step si*world+j, so its dropout generator matches the
+        single-device loop's step counter exactly. The loader groups with
+        the SAME ``superstep_indices`` the executor uses, so ``groups[si]``
+        names super-step si's batches and its (backend, block_f) closures
+        (§14). Returns params, optimizer state, and the loss sum and count
+        over the real members."""
+        groups = executor.supersteps(order)
+        loader = PrefetchLoader(host, order, group=executor.world,
+                                device=executor.mesh)
+        ep_loss, nsteps = 0.0, 0
+        for si, (batch, w) in enumerate(loader):
+            fns = executor.steps_for(*gnn_policy.superstep_decision(
+                decisions, groups[si][0]))
+            gens = [step_generator(base, ep, si * executor.world + j, d)
+                    for j, d in enumerate(executor.devices)]
+            params, opt_state, losses = fns.train(
+                params, replicas, opt_state, batch, w, self.sched.lr, gens)
+            for loss, wj in zip(losses, w):
+                if wj > 0:                      # real members only
+                    ep_loss += float(loss)
+                    nsteps += 1
+        return params, opt_state, ep_loss, nsteps
+
     def fit(self,
             train_batches,                    # Plan | List[PaddedBatch] | Batcher
             val_batches,                      # Plan | List[PaddedBatch]
@@ -255,11 +282,12 @@ class GNNTrainer:
             mesh=None) -> TrainResult:
         """Train on precomputed batches (or a resampling batcher from
         ``repro_torch.graph.sampling``). ``rng`` is the integer base seed of
-        initialisation and dropout (``self.seed`` when None)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh training is not ported yet (ROADMAP.md, Queue 1 item "
-                "1: Plan.supersteps and data parallel)")
+        initialisation and dropout (``self.seed`` when None). With a
+        ``mesh`` (a ``repro_torch.dist.data_parallel.DataMesh``) the Plan
+        runs data-parallel through ``ShardedPlanExecutor`` (DESIGN.md §9):
+        params replicate, each mesh entry takes one batch per super-step,
+        and the gradients are averaged — bitwise the single-device fit with
+        ``grad_accum = mesh_world(mesh)`` on the same device."""
         base = self.seed if rng is None else int(rng)
         # init from domain 0; dropout seeds live in domain 1 keyed by
         # (epoch, step) — see `step_rng` for why the split is stateless.
@@ -301,6 +329,35 @@ class GNNTrainer:
         for sample in ([host[0]] if fixed else []) + [val_host[0]]:
             gnn_ops.validate_batch_for_backend(sample, vb, self.cfg.kind)
 
+        executor = replicas = val_decisions = None
+        if mesh is not None:
+            if not fixed:
+                raise ValueError(
+                    "mesh execution needs precomputed fixed batches (a "
+                    "Plan/BatchCache/list) — resampling batchers regenerate "
+                    "per epoch and cannot be staged as super-steps")
+            if self.grad_accum != 1:
+                raise ValueError(
+                    "mesh=... already averages gradients over each "
+                    "super-step (DESIGN.md §9); combining it with "
+                    "grad_accum is not supported")
+            if self.nonfinite_policy != "off":
+                raise ValueError(
+                    "nonfinite_policy guards the single-device loop only; "
+                    "the mesh super-step path is unguarded (DESIGN.md §12) "
+                    "— use nonfinite_policy='off' with mesh=...")
+            from repro_torch.dist.data_parallel import ShardedPlanExecutor
+            executor = ShardedPlanExecutor(mesh, self.cfg, self.opt,
+                                           backend=self.policy)
+            # the master copy and its optimizer state on the mesh's first
+            # device; one replica per member
+            params = executor.place(params)
+            opt_state = executor.place(opt_state)
+            replicas = executor.replicate(params)
+            # the val plan's stored decisions, read before the cache
+            # normalization drops them (§14)
+            val_decisions = executor.decisions(val_batches)
+
         history: List[Dict] = []
         best_val_loss, best_val_acc, best_epoch = float("inf"), 0.0, -1
         best_params = params
@@ -321,48 +378,56 @@ class GNNTrainer:
                     epoch_pb, self.policy, self.cfg)
             else:
                 order = order_fn(ep)
-            ep_loss = 0.0
-            nsteps = 0
-            loader = PrefetchLoader(host, order, device=self.device)
-            for bi, batch in enumerate(loader):
-                # loader position bi holds batch order[bi]; its stored
-                # decision picks the step set (uniform when fixed)
-                steps = self._steps_for(*decisions[int(order[bi])])
-                gen = step_generator(base, ep, bi, self.device)
-                lr = self.sched.lr
-                if self.grad_accum == 1:
-                    if self.nonfinite_policy == "off":
-                        params, opt_state, loss = steps["train"](
-                            params, opt_state, batch, lr, gen)
+            if executor is not None:
+                params, opt_state, ep_loss, nsteps = self._mesh_epoch(
+                    executor, host, order, decisions, params, replicas,
+                    opt_state, base, ep)
+            else:
+                ep_loss = 0.0
+                nsteps = 0
+                loader = PrefetchLoader(host, order, device=self.device)
+                for bi, batch in enumerate(loader):
+                    # loader position bi holds batch order[bi]; its stored
+                    # decision picks the step set (uniform when fixed)
+                    steps = self._steps_for(*decisions[int(order[bi])])
+                    gen = step_generator(base, ep, bi, self.device)
+                    lr = self.sched.lr
+                    if self.grad_accum == 1:
+                        if self.nonfinite_policy == "off":
+                            params, opt_state, loss = steps["train"](
+                                params, opt_state, batch, lr, gen)
+                        else:
+                            params, opt_state, loss, ok = steps["guarded"](
+                                params, opt_state, batch, lr, gen)
+                            if not ok:
+                                self._on_nonfinite(ep, bi)
+                                continue   # loss is poisoned; update held
                     else:
-                        params, opt_state, loss, ok = steps["guarded"](
-                            params, opt_state, batch, lr, gen)
-                        if not ok:
+                        loss, grads = steps["grad"](params, batch, gen)
+                        if self.nonfinite_policy != "off" and \
+                                not _tree_finite(loss, grads):
+                            # never let a NaN enter the accumulator: one bad
+                            # micro-batch would poison the whole macro-step
                             self._on_nonfinite(ep, bi)
-                            continue   # loss is poisoned; update held
-                else:
-                    loss, grads = steps["grad"](params, batch, gen)
-                    if self.nonfinite_policy != "off" and \
-                            not _tree_finite(loss, grads):
-                        # never let a NaN enter the accumulator: one bad
-                        # micro-batch would poison the whole macro-step
-                        self._on_nonfinite(ep, bi)
-                        continue
-                    g = accum.add(grads)
+                            continue
+                        g = accum.add(grads)
+                        if g is not None:
+                            params, opt_state = apply_step(
+                                params, opt_state, g, lr)
+                    ep_loss += float(loss)
+                    nsteps += 1
+                if self.grad_accum > 1:
+                    g = accum.flush()
                     if g is not None:
                         params, opt_state = apply_step(params, opt_state, g,
-                                                       lr)
-                ep_loss += float(loss)
-                nsteps += 1
-            if self.grad_accum > 1:
-                g = accum.flush()
-                if g is not None:
-                    params, opt_state = apply_step(params, opt_state, g,
-                                                   self.sched.lr)
+                                                       self.sched.lr)
             epoch_times.append(time.time() - t0)
 
             if (ep + 1) % eval_every == 0:
-                val = self.evaluate(params, val_batches)
+                val = executor.evaluate(replicas, val_host,
+                                        decisions=val_decisions) \
+                    if executor is not None \
+                    else self.evaluate(params, val_batches)
                 self.sched.step(val["loss"])
                 history.append({"epoch": ep,
                                 "train_loss": ep_loss / max(nsteps, 1),

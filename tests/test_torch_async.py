@@ -115,12 +115,7 @@ def _outcome(fut):
 
 
 def _snapshot(tier):
-    """``tier.snapshot()`` with the reference engine's mesh-only
-    ``supersteps`` counter dropped (the port has no mesh serving)."""
-    d = tier.snapshot()
-    for t in d["tenants"].values():
-        t["engine"].pop("supersteps", None)
-    return d
+    return tier.snapshot()
 
 
 def _record(tier, futs, **extra):
@@ -787,6 +782,52 @@ def test_threaded_watchdog_restarts_worker(port):
     tier.close()
     assert tier.fault_stats.worker_restarts >= 1
     assert f1.done() and f2.done()
+
+
+def test_snapshot_waits_for_the_window_in_flight(port, tmp_path):
+    """The snapshot race, repaired in the port (the reference keeps it):
+    ``snapshot`` reads an out-of-core tenant's engine counters and lazy
+    cache under the tenant's lock. Here the window's ``run`` stops in the
+    middle of its LRU update — a batch is in the lazy cache, the engine
+    has not counted the request yet — until the test releases it. A
+    snapshot taken meanwhile must wait, then see the finished window."""
+    from repro_torch.ooc import PlanStore, write_store
+    write_store(str(tmp_path / "store"), port.plan, chunk_batches=1)
+    lazy = PlanStore.open(str(tmp_path / "store")).as_plan(
+        resident_batches=1)
+    eng = port.engine(plan=lazy)
+    entered, release = threading.Event(), threading.Event()
+    run = eng.run
+
+    def run_that_stops_mid_update(reqs):
+        eng.plan.cache[0]                  # the lazy LRU takes batch 0
+        entered.set()
+        assert release.wait(60.0)
+        return run(reqs)
+
+    eng.run = run_that_stops_mid_update
+    tier = port.AsyncGNNEngine({"ooc": eng},
+                               port.AsyncServeConfig(window_us=0.0))
+    try:
+        fut = tier.submit("ooc", _batch_nodes(port.plan, 0)[:2])
+        assert entered.wait(60.0)
+        snaps = []
+        reader = threading.Thread(target=lambda: snaps.append(
+            tier.snapshot()))
+        reader.start()
+        reader.join(timeout=0.5)
+        waited = reader.is_alive()
+        release.set()
+        reader.join(timeout=60.0)
+        assert fut.result(60.0).shape[0] == 2
+    finally:
+        release.set()
+        tier.close()
+    assert waited, "snapshot read the tenant while its window ran"
+    snap = snaps[0]["tenants"]["ooc"]
+    assert snap["engine"]["requests"] == 1
+    assert snap["engine"]["batch_runs"] == 1
+    assert snap["ooc"]["loads"] == 1 and snap["ooc"]["resident"] == 1
 
 
 def test_ooc_tenant_reports_its_lazy_cache(port, tmp_path):

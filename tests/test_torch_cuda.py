@@ -1,6 +1,7 @@
 """The port on a CUDA card: the kernels against their plain versions (the
 SpMM's pattern mode too), the loader's side-stream staging, short GCN and
-SAGE fits, a GAT and a SAGE step against the CPU, the async tier with a
+SAGE fits, a world-2 mesh fit on one card against grad_accum, a GAT and
+a SAGE step against the CPU, the async tier with a
 resident and an out-of-core tenant against the synchronous engine, and
 the LM's prefill and serving through the flash-attention kernel.
 
@@ -226,6 +227,41 @@ def test_short_fit_launches_the_kernel_on_every_aggregation(dev):
     assert build.launches["spmm_bcsr"] == \
         2 * (4 * len(train) + 2 * len(val))
     assert all(np.isfinite(h["train_loss"]) for h in res.history)
+
+
+def test_world2_mesh_on_one_card_is_grad_accum_bitwise(dev):
+    """A DataMesh that names the card twice: the mesh fit (dropout on, a
+    ragged tail) is bitwise the single-device grad_accum=2 fit, and every
+    member's SpMM runs the kernel — 6 launches per train member, pads
+    included, 2 per eval member."""
+    from repro_torch.core import IBMBConfig, IBMBPipeline
+    from repro_torch.dist.data_parallel import DataMesh
+    from repro_torch.graph.datasets import get_dataset
+    from repro_torch.models.gnn import GNNConfig
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import GNNTrainer
+    ds = get_dataset("tiny")
+    pipe = IBMBPipeline(ds, IBMBConfig(
+        variant="node", k_per_output=8, max_outputs_per_batch=16,
+        pad_multiple=32, backend="bcsr", tune_blocks=(16, 32)))
+    train, val = pipe.plan("train"), pipe.plan("val", for_inference=True)
+    cfg = GNNConfig(in_dim=ds.feat_dim, hidden=32, out_dim=ds.num_classes,
+                    num_layers=2, dropout=0.3)
+    mesh = DataMesh([dev, dev])
+    build.reset_launches()
+    got = GNNTrainer(cfg, backend="bcsr").fit(train, val, ds.num_classes,
+                                              epochs=2, mesh=mesh)
+    torch.cuda.synchronize()
+    members = -(-len(train) // 2) * 2
+    assert build.launches["spmm_bcsr"] == \
+        2 * (4 * members + 2 * -(-len(val) // 2) * 2)
+    want = GNNTrainer(cfg, backend="bcsr", grad_accum=2).fit(
+        train, val, ds.num_classes, epochs=2)
+    for g, w in zip(got.history, want.history):
+        for k in ("train_loss", "val_loss", "val_acc", "lr"):
+            assert g[k] == w[k], (k, g, w)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got.params),
+                                                 tree_leaves(want.params)))
 
 
 def test_async_tier_and_lazy_engine_on_the_card(dev, tmp_path):

@@ -16,6 +16,7 @@ _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _PORT = os.path.join(_ROOT, "src", "repro_torch")
 _SCRIPTS = [os.path.join(_ROOT, f) for f in ("chip_smoke.py",
                                              "plan_survey.py",
+                                             "tools/fit_card_vs_cpu.py",
                                              "tools/flash_variants.py",
                                              "tools/spmm_variants.py")]
 
@@ -71,7 +72,9 @@ def test_fresh_import_loads_no_jax_and_no_repro():
                 "repro_torch.ooc", "repro_torch.ooc.store",
                 "repro_torch.ooc.stream", "repro_torch.ooc.shard",
                 "repro_torch.serve.async_engine", "repro_torch.checkpoint",
-                "repro_torch.checkpoint.checkpointer"):
+                "repro_torch.checkpoint.checkpointer", "repro_torch.dist",
+                "repro_torch.dist.data_parallel",
+                "repro_torch.train.elastic", "repro_torch.core.influence"):
         assert mod in got["modules"]
     assert got["loaded"] == []
 
@@ -190,3 +193,80 @@ def test_the_presented_rules_catch_a_plain_write_and_a_clock_read():
     assert [f.split(" ")[0] for f in _findings(DeterminismChecker,
                                                project)] == \
         ["src/repro/ooc/stream.py:3"]
+
+
+def test_data_parallel_elastic_and_influence_are_ported():
+    from repro_torch.core import Plan
+    from repro_torch.core.influence import exact_influence
+    from repro_torch.dist.data_parallel import (
+        DataMesh, ShardedPlanExecutor, data_mesh, stack_batches)
+    from repro_torch.models.gnn.policy import superstep_decision
+    from repro_torch.train.elastic import ElasticCoordinator
+    assert all(callable(f) for f in (
+        Plan.supersteps, exact_influence, DataMesh, ShardedPlanExecutor,
+        data_mesh, stack_batches, superstep_decision,
+        ElasticCoordinator.epoch_queue))
+
+
+# The reference's lock-discipline rule scopes ``src/repro/serve/``,
+# ``src/repro/data/loader.py`` and ``src/repro/train/elastic.py``
+# (src/repro/analysis/locks.py:39). These tests present the port's copies
+# to it under those paths.
+_LOCKED = {
+    "src/repro_torch/data/loader.py": "src/repro/data/loader.py",
+    "src/repro_torch/train/elastic.py": "src/repro/train/elastic.py",
+    "src/repro_torch/serve/async_engine.py":
+        "src/repro/serve/async_engine.py",
+    "src/repro_torch/serve/common.py": "src/repro/serve/common.py",
+    "src/repro_torch/serve/gnn_engine.py": "src/repro/serve/gnn_engine.py",
+    "src/repro_torch/serve/engine.py": "src/repro/serve/engine.py",
+}
+
+
+def _locked_project(extra=None):
+    from repro.analysis.model import Project
+    sources = {}
+    for port, ref in _LOCKED.items():
+        with open(os.path.join(_ROOT, port), encoding="utf-8") as f:
+            sources[ref] = f.read()
+    sources.update(extra or {})
+    return Project.from_sources(sources)
+
+
+def test_port_copies_pass_the_reference_s_lock_discipline_rule():
+    from repro.analysis.locks import LockDisciplineChecker, in_scope
+    assert all(in_scope(ref) for ref in _LOCKED.values())
+    assert _findings(LockDisciplineChecker, _locked_project()) == []
+
+
+def test_the_presented_lock_rule_catches_nesting_and_blocking():
+    from repro.analysis.locks import LockDisciplineChecker
+    with open(os.path.join(_ROOT, "src/repro_torch/train/elastic.py"),
+              encoding="utf-8") as f:
+        elastic = f.read()
+    # a lease read from disk under the queue's lock, and a snapshot that
+    # nests the tenant lock inside the condition the dispatcher takes
+    # after it
+    bad = elastic.replace(
+        "            return sum(len(v) for v in self.leases.values())",
+        "            time.sleep(0.1)\n"
+        "            return sum(len(v) for v in self.leases.values())")
+    assert bad != elastic
+    nest = ("import threading\n"
+            "class T:\n"
+            "    def __init__(self):\n"
+            "        self._cond = threading.Condition()\n"
+            "        self.lock = threading.Lock()\n"
+            "    def a(self):\n"
+            "        with self.lock:\n"
+            "            with self._cond:\n"
+            "                pass\n"
+            "    def b(self):\n"
+            "        with self._cond:\n"
+            "            with self.lock:\n"
+            "                pass\n")
+    found = _findings(LockDisciplineChecker, _locked_project(
+        {"src/repro/train/elastic.py": "import time\n" + bad,
+         "src/repro/serve/extra.py": nest}))
+    assert any(f.startswith("src/repro/train/elastic.py:") for f in found)
+    assert any(f.startswith("src/repro/serve/extra.py:") for f in found)

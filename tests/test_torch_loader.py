@@ -105,8 +105,13 @@ def test_reusable_after_early_exit():
 
 
 def test_group_waits_for_the_data_parallel_slice():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        PrefetchLoader(_batches(), group=2, device="cpu")
+    """The data-parallel slice has landed: ``group=`` stages super-steps
+    (the reference's semantics; tests/test_torch_data_parallel.py holds
+    them to the reference's loader)."""
+    steps = list(PrefetchLoader(_batches(5), group=2, device="cpu"))
+    assert [s[0]["x"][:, 0, 0].tolist() for s in steps] == \
+        [[0.0, 1.0], [2.0, 3.0], [4.0, 4.0]]
+    assert [s[1].tolist() for s in steps] == [[1, 1], [1, 1], [1, 0]]
 
 
 def test_default_device_without_a_card_raises(monkeypatch):

@@ -94,11 +94,14 @@ def test_coalesced_run_matches_jax(setup, backend):
 
 
 def test_engine_refuses_mesh(setup):
+    """Mesh serving is ported (tests/test_torch_data_parallel.py); a mesh
+    without a data axis is refused with the reference's error."""
+    from repro_torch.dist.data_parallel import DataMesh
     _ref, port, mkw, params = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="has no data axis"):
         GNNInferenceEngine(port, GNNConfig(**mkw),
-                           params_from_jax(params, "cpu"), mesh=object(),
-                           device="cpu")
+                           params_from_jax(params, "cpu"),
+                           mesh=DataMesh(["cpu"], ("model",)))
 
 
 def test_query_raises_on_uncovered_ids(setup):

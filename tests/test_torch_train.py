@@ -278,7 +278,14 @@ def test_trainer_defaults_to_cuda_and_refuses_without_a_card(monkeypatch):
 
 
 def test_mesh_waits_for_the_data_parallel_slice(plans):
-    trainer = GNNTrainer(GNNConfig(**plans["kw"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        trainer.fit(plans["port"][0], plans["port"][1],
-                    plans["ds"].num_classes, epochs=1, mesh=object())
+    """The data-parallel slice has landed: a 1-entry CPU mesh fit is
+    bitwise the plain fit (tests/test_torch_data_parallel_fit.py holds
+    wider meshes to grad_accum and to JAX)."""
+    from repro_torch.dist.data_parallel import DataMesh
+    got, want = (GNNTrainer(GNNConfig(**plans["kw"]), device="cpu").fit(
+        plans["port"][0], plans["port"][1], plans["ds"].num_classes,
+        epochs=1, mesh=mesh) for mesh in (DataMesh(["cpu"]), None))
+    assert [h["val_loss"] for h in got.history] == \
+        [h["val_loss"] for h in want.history]
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got.params),
+                                                 tree_leaves(want.params)))
