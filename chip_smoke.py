@@ -11,7 +11,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               one ``nvcc`` per source, all started together; each SpMM
               kernel's registers and spills (``ptxas -v``, fatal if it
               spills) and the bulk copies (UBLKCP) in the SASS of every
-              instantiation that streams by them (fatal if absent).
+              instantiation that streams by them (fatal if absent); the
+              registers and spills of the flash kernels' head-dim-256
+              instantiations (fatal if one spills).
 3. kernels-random — both block-CSR SpMM kernels and the fused kernel's
               pattern mode (``(A != 0) @ x``, GraphSAGE's neighbour sum),
               forward and backward (through ``spmm_bcsr_sym``; B 1-128, F
@@ -21,7 +23,8 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               row gather (f32 and bf16,
               rows that do and do not take 16-byte vectors, ids outside the
               table) and flash attention (f32 and bf16, causal or not,
-              window 0 or 64, S 128/200/4095, D 64/128, GQA 1 or 4) against
+              window 0 or 64, S 128/200/4095, D 64/128, GQA 1 or 4; and
+              at D 256 window 0/64/2048, GQA 1/4/10 over one kv head) against
               their plain PyTorch versions on random cases; bf16 attention
               (the tensor-core kernel) is held elementwise to one bf16
               rounding of the f32 result, f32 attention (the CUDA-core
@@ -125,6 +128,12 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               bf16 kernel's SASS must hold tensor-core (HGMMA) and TMA
               (UTMALDG) instructions; its registers, spills and shared
               memory per block from the build.
+9a. flash-256 — the kernel at recurrentgemma-2b's local layers (B=1, 10
+              heads over 1 kv head, S=4096, head dim 256, causal, window
+              2048) in bf16 and f32 against the plain version, then its
+              bf16 time beside the bound, the plain version and
+              ``scaled_dot_product_attention`` on expanded K/V with the
+              window as a mask (the yardstick only).
 10. lm-prefill — the LM main path: ``init_params`` of the full llama3.2-1b
               (16 layers, bf16) on the card, then ``lm_forward`` and
               ``head_logits`` on the last position at B=1, S=4096: exactly
@@ -148,6 +157,41 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               restore seconds); ``ckpt_io`` on a background save re-raised
               by ``wait``; a corrupt newest step and ``auto_resume`` falls
               back to the older one.
+15. lm-archs — deepseek-v2-lite-16b (MLA + MoE), recurrentgemma-2b (RG-LRU
+              + local attention at head dim 256) and rwkv6-3b at full
+              width and depth in bf16, each in turn and freed before the
+              next: ``init_params`` on the card, ``lm_forward`` and
+              ``head_logits`` at B=1, S=4096 with finite logits and the
+              exact flash launches (8 at head dim 256 for recurrentgemma,
+              none for the others), the forward's time and device time
+              split (flash, the MoE's routing/dispatch/combine, the
+              recurrences' scans, GEMMs, rest) and the peak memory.
+16. lm-archs-card-vs-cpu — each at full width, cut in depth, in f32: the
+              card's logits against the CPU path's (deepseek 1 dense + 1
+              MoE layer at S=256 with assignments dropped; recurrentgemma
+              one (R, R, A) superblock at S=4096, so that the window
+              binds; rwkv6 2 layers at S=256).
+17. lm-archs-decode — 64 teacher-forced ``decode_step``s (B=2, f32)
+              against the prefill's last logits at the reference's 2e-2:
+              deepseek cut to 4 layers at a capacity factor (11) under
+              which the prefill drops nothing, recurrentgemma at full
+              depth with its softcap at 0, rwkv6 at full depth; printed
+              beside them, deepseek at its config's 1.25 with the
+              prefill's dropped assignments, and recurrentgemma with its
+              softcap of 30, which the reference's local prefill leaves
+              out.
+18. lm-archs-serve — ``ServeEngine`` (4 slots, max_len 512) serves 8
+              seeded requests for each of the three at full width in
+              bf16; all complete, none evicted, request 0's tokens equal
+              those it gets alone.
+19. lm-frontends — musicgen-large (4-codebook tokens, exactly 48 flash
+              launches, 4 decode steps of (2, 1, 4) tokens) and
+              internvl2-1b (a 256-row ``prefix_embeds`` before 4096 text
+              tokens, 24 flash launches) at full width in bf16, then each
+              cut to 2 layers in f32 with the card's logits against the
+              CPU's. Phases 15–19 are module functions (``lm_archs_phase``
+              and its siblings) that rehearse on the CPU with the SMOKE
+              configs.
 
 The second-to-last line is a JSON ``kernels`` record and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -208,6 +252,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "gather_rows": ("src/repro_torch/kernels/csrc/gather_rows.cu",
                     "src/repro/kernels/gather_rows/gather_rows.py:29"),
     "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:81"),
+    # the same kernels' head-dim-256 instantiations (the bf16 one a block
+    # of one consumer warpgroup), counted apart: recurrentgemma's local
+    # layers
+    "flash_attention_d256": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:81"),
 }
@@ -408,11 +458,15 @@ def device_time_split(prof, torch, kinds=GNN_KINDS):
     return split
 
 
-def attention_bound_ms(b, h, kv, s, d, causal, elem, peak_flops, peak_bw):
+def attention_bound_ms(b, h, kv, s, d, causal, elem, peak_flops, peak_bw,
+                       window=0):
     """Least time for one attention call: q, k and v read once and the
     output written once, against the operations the mask leaves (two
-    products of 2·D flops per visible (query, key) pair)."""
+    products of 2·D flops per visible (query, key) pair; with a window W,
+    a causal query i sees min(i + 1, W) keys)."""
     pairs = s * (s + 1) // 2 if causal else s * s
+    if causal and 0 < window < s:
+        pairs = window * (window + 1) // 2 + (s - window) * window
     flops = 4.0 * b * h * pairs * d
     nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * elem
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
@@ -1189,6 +1243,492 @@ def influence_phase(ctx) -> None:
         raise AssertionError(f"PPR should rank like influence, got {cors}")
 
 
+# ------------------------------------------------------------ LM archs
+# the architectures served at full width (phases lm-archs to lm-archs-serve)
+# and the frontends (phase lm-frontends)
+LM_ARCHS = ("deepseek-v2-lite-16b", "recurrentgemma-2b", "rwkv6-3b")
+FRONTEND_ARCHS = ("musicgen-large", "internvl2-1b")
+# teacher-forced decode steps held against the prefill, per family
+ARCH_DECODE_STEPS = 64
+# a capacity factor at which deepseek-v2-lite's prefill drops nothing:
+# above E/k = 64/6, so one expert can take every token
+NO_DROP_CF = 11.0
+# device time inside these functions is read as one kind in a forward's
+# split (module, function): the MoE's routing, dispatch and combine, and
+# the recurrences' scans
+ARCH_RANGES = (("moe_dispatch", "moe", ("route", "dispatch", "combine")),
+               ("scan", "rglru", ("linear_scan",)),
+               ("scan", "rwkv", ("_wkv_chunk",)))
+
+
+def flash_launches_of(cfg):
+    """The flash launches of one prefill of ``cfg`` on the card: one per
+    GQA or local layer, counted under ``flash_attention_d256`` at head dim
+    256."""
+    n = sum(len([s for s in st.layers if s.mixer in ("gqa", "local")]) *
+            st.repeat for st in cfg.stages)
+    if not n:
+        return {}
+    return {"flash_attention_d256" if cfg.resolved_head_dim == 256
+            else "flash_attention": n}
+
+
+def arch_cut(ctx, arch, purpose):
+    """The config ``arch`` at full width, cut in depth for ``purpose``:
+    "card-vs-cpu" (f32; deepseek 1 dense + 1 MoE layer, recurrentgemma one
+    (R, R, A) superblock, rwkv6 and the frontends 2 layers) or "decode"
+    (f32; deepseek 1 dense + 3 MoE layers with NO_DROP_CF, recurrentgemma
+    one superblock with its softcap at 0, the others at full depth)."""
+    from repro_torch.models.lm.config import Stage
+    cfg = dataclasses.replace(ctx.config(arch), dtype="float32")
+    first, last = cfg.stages[0], cfg.stages[-1]
+    if purpose == "card-vs-cpu":
+        if arch == "deepseek-v2-lite-16b":
+            return dataclasses.replace(cfg, stages=(
+                Stage(first.layers, 1), Stage(last.layers, 1)))
+        if arch == "recurrentgemma-2b":
+            return dataclasses.replace(cfg, stages=(Stage(first.layers, 1),))
+        return dataclasses.replace(cfg, stages=(Stage(first.layers, 2),))
+    if arch == "deepseek-v2-lite-16b":
+        return dataclasses.replace(cfg, stages=(
+            Stage(first.layers, 1), Stage(last.layers, 3)),
+            moe_capacity_factor=NO_DROP_CF)
+    if arch == "recurrentgemma-2b":
+        return dataclasses.replace(cfg, stages=(Stage(first.layers, 1),),
+                                   logit_softcap=0.0)
+    return cfg
+
+
+def arch_params(ctx, arch, cut, seed):
+    """The first layers of the full model: ``init_params`` of ``arch`` at
+    full depth in its dtype on the card, each stage's stacked leaves cut
+    to the repeats of ``cut`` and cast to ``cut``'s dtype. The reference's
+    init draws a stacked weight with std repeat ** -0.5, so a model
+    initialised at the cut depth would have weights up to 4x as large,
+    whose outputs f32 resolves no better than about 1e-3 (rwkv6 at 2
+    layers)."""
+    from repro_torch.models.lm import init_params
+    torch = ctx.torch
+    full = init_params(ctx.config(arch), torch.Generator(ctx.dev).manual_seed(
+        seed), ctx.dev)
+    dt = getattr(torch, cut.dtype)
+
+    def cast(tree, n=None):
+        if isinstance(tree, dict):
+            return {k: cast(v, n) for k, v in tree.items()}
+        return (tree if n is None else tree[:n]).to(dt)
+    out = {k: cast(v) for k, v in full.items() if k != "stages"}
+    out["stages"] = [cast(st, c.repeat) for st, c in zip(full["stages"],
+                                                          cut.stages)]
+    del full
+    if ctx.on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def arch_ranges(torch):
+    """Wrap the functions of ARCH_RANGES in ``record_function`` ranges."""
+    import importlib
+    with contextlib.ExitStack() as stack:
+        for label, mod_name, names in ARCH_RANGES:
+            mod = importlib.import_module(f"repro_torch.models.lm.{mod_name}")
+            for name in names:
+                def wrapped(*a, _fn=getattr(mod, name), _label=label, **kw):
+                    with torch.profiler.record_function(_label):
+                        return _fn(*a, **kw)
+                stack.enter_context(unittest.mock.patch.object(mod, name,
+                                                               wrapped))
+        yield
+
+
+def is_gemm(name: str) -> bool:
+    return any(w in name.lower() for w in ("gemm", "nvjet", "xmma",
+                                           "cutlass", "matmul"))
+
+
+def arch_time_split(prof):
+    """A profiled forward's device time (µs): flash kernels, then the
+    kernels under the ``moe_dispatch`` and ``scan`` ranges, then GEMMs,
+    then the rest."""
+    def under(ev):
+        for k in ev.kernels:
+            yield k.name, k.duration
+        for ch in ev.cpu_children:
+            yield from under(ch)
+    split = dict(flash_kernel=0.0, moe_dispatch=0.0, scan=0.0, gemm=0.0,
+                 rest=0.0)
+    ranged_gemm = 0.0
+    for ev in prof.events():
+        if ev.name in ("moe_dispatch", "scan"):
+            for name, us in under(ev):
+                split[ev.name] += us
+                ranged_gemm += us if is_gemm(name) else 0.0
+    total = 0.0
+    for key, _, us in device_events(prof):
+        total += us
+        if "flash_fwd" in key:
+            split["flash_kernel"] += us
+        elif is_gemm(key):
+            split["gemm"] += us
+    split["gemm"] -= ranged_gemm
+    split["rest"] = total - sum(split.values())
+    return split, total
+
+
+def arch_tokens(ctx, cfg, shape, seed):
+    shape = tuple(shape) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1
+                            else ())
+    return ctx.torch.as_tensor(ctx.np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, shape), device=ctx.dev)
+
+
+def arch_last_logits(cfg, params, toks, prefix=None):
+    from repro_torch.models.lm import head_logits, lm_forward
+    return head_logits(cfg, params, lm_forward(cfg, params, toks,
+                                               prefix)[:, -1])
+
+
+def arch_prefill_phase(ctx, arch, prefix_rows=0):
+    """``init_params`` of ``arch`` at full width and depth on the card, one
+    prefill's logits at B=1 (with ``prefix_rows`` of patch embeddings
+    before the text), the exact flash launches, the forward's time and
+    device time split, and the peak memory."""
+    torch, build, dev = ctx.torch, ctx.build, ctx.dev
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+    cfg = ctx.config(arch)
+    if ctx.on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    ctx.sync()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() if ctx.on_card else 0
+    if ctx.on_card:
+        torch.cuda.reset_peak_memory_stats()
+    n = sum(t.numel() for t in tree_leaves(params))
+    toks = arch_tokens(ctx, cfg, (1, ctx.prefill_s), 1)
+    prefix = None
+    if prefix_rows:
+        prefix = (torch.randn((1, prefix_rows, cfg.d_model), device=dev,
+                              generator=torch.Generator(dev).manual_seed(2))
+                  * 0.02).to(getattr(torch, cfg.dtype))
+    build.reset_launches()
+    logits = arch_last_logits(cfg, params, toks, prefix)
+    ctx.sync()
+    got = {k: v for k, v in build.launches.items() if v}
+    want = flash_launches_of(cfg) if ctx.on_card else {}
+    width = cfg.num_codebooks * cfg.vocab_size
+    print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.dtype}: {n} parameters initialised on the card in "
+          f"{init_s:.1f} s; prefill B=1 S={ctx.prefill_s}"
+          f"{f' after a {prefix_rows}-row prefix' if prefix_rows else ''}: "
+          f"logits {tuple(logits.shape)}, max |logit| "
+          f"{logits.float().abs().max().item():.4f}; launches {got} (want "
+          f"{want})", flush=True)
+    if got != want:
+        raise AssertionError(f"{arch}: kernel launches {got}, want {want}")
+    if logits.shape != (1, width) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch}: non-finite or misshapen logits")
+    ms = ctx.cuda_ms(lambda: arch_last_logits(cfg, params, toks, prefix))
+    with arch_ranges(torch), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        arch_last_logits(cfg, params, toks, prefix)
+        ctx.sync()
+    split, total = arch_time_split(prof)
+    if ctx.on_card and total <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    peak = torch.cuda.max_memory_allocated() if ctx.on_card else 0
+    s_all = ctx.prefill_s + prefix_rows
+    print(f"{arch} one prefill (CUDA events): {ms:.3f} ms, "
+          f"{s_all / ms * 1e3:.0f} tokens/s; device time (torch.profiler) "
+          + ", ".join(f"{k} {v / 1e3:.3f} ms "
+                      f"({v / max(total, 1e-9) * 100:.1f}%)"
+                      for k, v in split.items())
+          + f"; total {total / 1e3:.3f} ms, device busy "
+          f"{total / 1e3 / ms * 100:.1f}%; peak memory allocated "
+          f"{init_peak / 1e9:.2f} GB in init_params, {peak / 1e9:.2f} GB in "
+          f"the forwards", flush=True)
+    ctx.arch_records[arch] = dict(params=n, ms=ms, split=split,
+                                  peak_gb=peak / 1e9, launches=got)
+    del params, logits
+    if ctx.on_card:
+        torch.cuda.empty_cache()
+
+
+def lm_archs_phase(ctx):
+    for arch in LM_ARCHS:
+        arch_prefill_phase(ctx, arch)
+
+
+@contextlib.contextmanager
+def counting_drops(torch, drops):
+    """Append each MoE call's count of dropped assignments to ``drops``."""
+    from repro_torch.models.lm import moe
+    route = moe.route
+
+    def counted(*a, **kw):
+        r = route(*a, **kw)
+        drops.append(int((~r.keep).sum()))
+        return r
+    with unittest.mock.patch.object(moe, "route", counted):
+        yield
+
+
+def lm_archs_card_vs_cpu_phase(ctx):
+    """Each family at full width, cut in depth (the full model's first
+    layers), in f32: the card's logits against the CPU path's."""
+    torch, build = ctx.torch, ctx.build
+    from repro_torch.optim import tree_map
+    for arch in LM_ARCHS:
+        cfg = arch_cut(ctx, arch, "card-vs-cpu")
+        s = ctx.rg_cvc_s if arch == "recurrentgemma-2b" else ctx.cvc_s
+        p = arch_params(ctx, arch, cfg, 1)
+        toks = arch_tokens(ctx, cfg, (1, s), 3)
+        drops = []
+        build.reset_launches()
+        with counting_drops(torch, drops):
+            got = arch_last_logits(cfg, p, toks)
+            ctx.sync()
+        launches = {k: v for k, v in build.launches.items() if v}
+        want_l = flash_launches_of(cfg) if ctx.on_card else {}
+        t0 = time.perf_counter()
+        cpu_p = tree_map(lambda t: t.cpu(), p)
+        want = arch_last_logits(cfg, cpu_p, toks.cpu())
+        err = (got.cpu() - want).abs().max().item()
+        print(f"{arch} cut to {cfg.num_layers} layers, f32, S={s}: card vs "
+              f"CPU logits max_abs_err {err:.3e}, max |logit| "
+              f"{want.abs().max().item():.4f}; launches {launches}; MoE "
+              f"assignments dropped per layer on the card {drops}; CPU "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if launches != want_l:
+            raise AssertionError(f"launches {launches}, want {want_l}")
+        if arch == "deepseek-v2-lite-16b" and not sum(drops):
+            raise AssertionError("no MoE assignment was dropped: the "
+                                 "capacity never bound")
+        torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
+        del p, cpu_p
+
+
+def decode_figure(ctx, cfg, params, toks, drops=None):
+    """err / max |logit| of the last of len(toks) teacher-forced decode
+    steps against the prefill's last logits, and ms per step (host
+    clock)."""
+    from repro_torch.models.lm import decode_step, init_cache
+    with counting_drops(ctx.torch, drops if drops is not None else []):
+        full = arch_last_logits(cfg, params, toks).float()
+    cache = init_cache(cfg, toks.shape[0], 2 * toks.shape[1], ctx.dev)
+    t0 = time.perf_counter()
+    for t in range(toks.shape[1]):
+        logits, cache = decode_step(cfg, params, cache, toks[:, t:t + 1], t)
+    ctx.sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / toks.shape[1]
+    scale = full.abs().max().item() + 1e-9
+    err = (logits[:, 0].float() - full).abs().max().item()
+    return err / scale, scale, step_ms
+
+
+def sequential_scan(a, b):
+    """``rglru.linear_scan`` one step at a time, in decode's order of
+    operations."""
+    import torch
+    h, out = torch.zeros_like(b[:, 0]), []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out.append(h)
+    return torch.stack(out, dim=1)
+
+
+def lm_archs_decode_phase(ctx):
+    """ARCH_DECODE_STEPS teacher-forced decode steps per family in f32
+    against the prefill, at the reference's limit; and, printed for the
+    record, deepseek at its config's capacity factor (the prefill drops
+    assignments that decode does not) and recurrentgemma at full depth:
+    with its softcap at 0, with the config's (which the reference's local
+    prefill leaves out), and its prefill against the same prefill with the
+    scan run step by step (two f32 orders of the same sums)."""
+    from repro_torch.models.lm import rglru
+    for arch in LM_ARCHS:
+        cfg = arch_cut(ctx, arch, "decode")
+        p = arch_params(ctx, arch, cfg, 4)
+        toks = arch_tokens(ctx, cfg, (2, ctx.decode_steps), 5)
+        fig, scale, step_ms = decode_figure(ctx, cfg, p, toks)
+        print(f"{arch} ({cfg.num_layers} layers, f32, cf "
+              f"{cfg.moe_capacity_factor}, softcap {cfg.logit_softcap}): "
+              f"{ctx.decode_steps} teacher-forced decode steps (B=2) vs "
+              f"prefill, last logits err / max |logit| ({scale:.4f}) = "
+              f"{fig:.3e} (limit {DECODE_REL}); {step_ms:.2f} ms per step "
+              f"(host clock)", flush=True)
+        if not fig < DECODE_REL:
+            raise AssertionError(f"{arch}: f32 decode diverges from "
+                                 f"prefill: {fig:.3e}")
+        base = ctx.config(arch)
+        if arch == "deepseek-v2-lite-16b":
+            drops = []
+            alt = dataclasses.replace(
+                cfg, moe_capacity_factor=base.moe_capacity_factor)
+            fig2, _, _ = decode_figure(ctx, alt, p, toks, drops)
+            print(f"  at the config's capacity factor "
+                  f"{base.moe_capacity_factor}: {fig2:.3e}; the prefill "
+                  f"(T = {toks.numel()}) dropped {drops} assignments per "
+                  f"MoE layer, decode (T = 2 a step) drops none",
+                  flush=True)
+        if arch == "recurrentgemma-2b":
+            del p
+            full = dataclasses.replace(base, dtype="float32",
+                                       logit_softcap=0.0)
+            p = arch_params(ctx, arch, full, 4)
+            fig0, _, _ = decode_figure(ctx, full, p, toks)
+            want = arch_last_logits(full, p, toks).float()
+            with unittest.mock.patch.object(rglru, "linear_scan",
+                                            sequential_scan):
+                seq = arch_last_logits(full, p, toks).float()
+            gap = (seq - want).abs().max().item() / want.abs().max().item()
+            capped = dataclasses.replace(full,
+                                         logit_softcap=base.logit_softcap)
+            fig30, _, _ = decode_figure(ctx, capped, p, toks)
+            print(f"  at full depth ({full.num_layers} layers): softcap 0 "
+                  f"{fig0:.3e}; the prefill against the same prefill with "
+                  f"the RG-LRU scan run step by step {gap:.3e} (two f32 "
+                  f"orders of the same sums); with "
+                  f"the config's softcap {base.logit_softcap}: {fig30:.3e}: "
+                  f"the reference's local prefill applies no softcap and "
+                  f"its decode does (ROADMAP Queue 3)", flush=True)
+        del p
+        if ctx.on_card:
+            ctx.torch.cuda.empty_cache()
+
+
+def decode_step_profile(ctx, cfg, params, eng, n=4):
+    """What the card does in a serving decode step of ``eng``'s slots:
+    kernels and device time per step under ``torch.profiler``, against
+    the step's host time."""
+    torch = ctx.torch
+    from repro_torch.models.lm import decode_step
+    from torch.profiler import ProfilerActivity, profile
+    cache, pos = eng.cache, eng.pos
+    toks = torch.zeros((eng.num_slots, 1) + (
+        (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()),
+        dtype=torch.long, device=ctx.dev)
+    ctx.sync()
+    t0 = time.perf_counter()
+    for t in range(n):
+        decode_step(cfg, params, cache, toks, pos + t)
+    ctx.sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(n):
+            decode_step(cfg, params, cache, toks, pos + n + t)
+        ctx.sync()
+    acts = list(device_events(prof))
+    kernels = sum(c for _, c, _ in acts) / n
+    busy = sum(us for _, _, us in acts) / 1e3 / n
+    top = sorted(acts, key=lambda a: -a[2])[:3]
+    print(f"  decode step (B={eng.num_slots}, torch.profiler, {n} "
+          f"steps): {kernels:.0f} device kernels and copies, {busy:.3f} ms "
+          f"of device time per step against {step_ms:.2f} ms on the host "
+          f"clock (device busy {busy / step_ms * 100:.1f}%); largest: "
+          + ", ".join(f"{k[:60]} {us / 1e3 / n:.3f} ms" for k, _, us in top),
+          flush=True)
+
+
+def lm_archs_serve_phase(ctx):
+    """``ServeEngine`` (4 slots, max_len 512) serves 8 seeded requests at
+    full width in bf16; all complete, none is evicted, and the first
+    request's tokens equal those it gets alone."""
+    torch, dev, np = ctx.torch, ctx.dev, ctx.np
+    from repro_torch.models.lm import init_params
+    from repro_torch.serve import Request, ServeEngine
+    for arch in LM_ARCHS:
+        cfg = ctx.config(arch)
+        params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+        srng = np.random.default_rng(23)
+        prompts = [srng.integers(0, cfg.vocab_size, int(srng.integers(
+            32, 65))).astype(np.int32) for _ in range(8)]
+        reqs = [Request(prompt=pr, max_new_tokens=16) for pr in prompts]
+        eng = ServeEngine(cfg, params, num_slots=4, max_len=512, device=dev)
+        stats = eng.run(reqs)
+        ctx.sync()
+        new = sum(len(r.out_tokens) for r in reqs)
+        print(f"ServeEngine {arch} {cfg.dtype}, 4 slots, max_len 512: "
+              f"{stats['completed']}/8 requests, {stats['evicted']} "
+              f"evicted, {stats['steps']} steps in {stats['time_s']:.3f} s "
+              f"(host clock), {stats['time_s'] * 1e3 / stats['steps']:.2f} "
+              f"ms per step, {new / stats['time_s']:.1f} generated "
+              f"tokens/s", flush=True)
+        if stats["completed"] != 8 or stats["evicted"] != 0:
+            raise AssertionError(f"serving left requests unfinished: "
+                                 f"{stats}")
+        if not all(len(r.out_tokens) == 16 and all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens)
+                for r in reqs):
+            raise AssertionError("bad generated tokens")
+        alone = Request(prompt=prompts[0], max_new_tokens=16)
+        ServeEngine(cfg, params, num_slots=4, max_len=512,
+                    device=dev).run([alone])
+        print(f"  request 0: {reqs[0].out_tokens}; alone: "
+              f"{alone.out_tokens}", flush=True)
+        if alone.out_tokens != reqs[0].out_tokens:
+            raise AssertionError("request 0's tokens depend on its "
+                                 "neighbours in the batch")
+        decode_step_profile(ctx, cfg, params, eng)
+        del eng, params
+        if ctx.on_card:
+            torch.cuda.empty_cache()
+
+
+def lm_frontends_phase(ctx):
+    """musicgen-large ((B, S, 4) codebook tokens; a few (B, 1, 4) decode
+    steps) and internvl2-1b (a 256-row ``prefix_embeds``) at full width,
+    then each at a cut depth in f32 with the card's logits against the
+    CPU's."""
+    torch, dev = ctx.torch, ctx.dev
+    from repro_torch.models.lm import decode_step, init_cache, init_params
+    from repro_torch.optim import tree_map
+    for arch in FRONTEND_ARCHS:
+        cfg = ctx.config(arch)
+        rows = cfg.vision_prefix_len
+        arch_prefill_phase(ctx, arch, prefix_rows=rows)
+        if cfg.num_codebooks > 1:
+            params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev)
+            toks = arch_tokens(ctx, cfg, (2, 4), 6)
+            cache = init_cache(cfg, 2, 8, dev)
+            for t in range(4):
+                logits, cache = decode_step(cfg, params, cache,
+                                            toks[:, t:t + 1], t)
+            ctx.sync()
+            print(f"{arch}: 4 decode steps of (2, 1, {cfg.num_codebooks}) "
+                  f"tokens: logits {tuple(logits.shape)}", flush=True)
+            if logits.shape != (2, 1, cfg.num_codebooks * cfg.vocab_size) \
+                    or not torch.isfinite(logits).all():
+                raise AssertionError("bad multi-codebook decode logits")
+            del params, cache
+        cut = arch_cut(ctx, arch, "card-vs-cpu")
+        p = arch_params(ctx, arch, cut, 1)
+        toks = arch_tokens(ctx, cut, (1, ctx.cvc_s), 7)
+        prefix = None
+        if rows:
+            prefix = torch.randn((1, rows, cut.d_model), device=dev,
+                                 generator=torch.Generator(dev).manual_seed(
+                                     8)) * 0.02
+        got = arch_last_logits(cut, p, toks, prefix)
+        cpu_p = tree_map(lambda t: t.cpu(), p)
+        want = arch_last_logits(cut, cpu_p, toks.cpu(),
+                                None if prefix is None else prefix.cpu())
+        err = (got.cpu() - want).abs().max().item()
+        print(f"{arch} cut to {cut.num_layers} layers, f32, S={ctx.cvc_s}"
+              f"{f' + {rows} prefix rows' if rows else ''}: card vs CPU "
+              f"logits max_abs_err {err:.3e}, max |logit| "
+              f"{want.abs().max().item():.4f}", flush=True)
+        torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
+        del p, cpu_p
+
+
 def spearman(np, a, b) -> float:
     """Spearman's rank correlation (tests/test_influence.py)."""
     ra = np.argsort(np.argsort(a))
@@ -1246,6 +1786,17 @@ def main() -> None:
         for src in sorted({src for src, _ in KERNELS.values()}):
             if "spmm" in src:
                 spmm_build_report(build, os.path.basename(src))
+        # the flash kernels' head-dim-256 instantiations: registers and
+        # spills (their O accumulator alone is 128 registers a thread)
+        d256 = [r for r in ptxas_report(build.build_log(os.path.basename(
+            KERNELS["flash_attention"][0]))) if "Li256E" in r[0]]
+        for name, regs, stack, spill_st, spill_ld in d256:
+            print(f"ptxas {name}: {regs} registers, {stack} bytes stack, "
+                  f"{spill_st}/{spill_ld} bytes spill stores/loads",
+                  flush=True)
+        if len(d256) != 2 or any(r[3] or r[4] for r in d256):
+            raise AssertionError(f"want the f32 and bf16 flash kernels at "
+                                 f"head dim 256, without spills: {d256}")
 
     max_err = {name: 0.0 for name in KERNELS}
     record = {}
@@ -1414,6 +1965,8 @@ def main() -> None:
              f"the table, zero rows)", exact)
 
     def check_flash(q, k, v, causal, window, label):
+        name = "flash_attention_d256" if q.shape[-1] == 256 \
+            else "flash_attention"
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
                              window=window)
@@ -1422,7 +1975,7 @@ def main() -> None:
         limit = ATOL + (BF16_REL * want.abs() if q.dtype == torch.bfloat16
                         else 0.0)
         err = diff.max().item()
-        note("flash_attention", err, f"{label} (worst error / limit "
+        note(name, err, f"{label} (worst error / limit "
              f"{(diff / limit).max().item():.3f})", bool(
                  (diff <= limit).all() and torch.isfinite(got).all())
              and got.stride() == q.stride())
@@ -1470,6 +2023,16 @@ def main() -> None:
                     for _ in range(2))
             check_flash(q, k, v, causal, window, f"random {dtype} causal="
                         f"{causal} window={window} S={s} D={d} G={g}")
+        # head dim 256, up to recurrentgemma's 10 query heads over 1 kv head
+        # and its window of 2048
+        for dtype, causal, window, s, g in itertools.product(
+                (torch.float32, torch.bfloat16), (True, False),
+                (0, 64, 2048), (128, 200, 4095), (1, 4, 10)):
+            q = bshd(torch, gen, (1, s, g, 256), dtype, dev)
+            k, v = (bshd(torch, gen, (1, s, 1, 256), dtype, dev)
+                    for _ in range(2))
+            check_flash(q, k, v, causal, window, f"random {dtype} causal="
+                        f"{causal} window={window} S={s} D=256 G={g}")
 
     from repro_torch.core import IBMBConfig, IBMBPipeline
     from repro_torch.graph.datasets import get_dataset
@@ -2246,6 +2809,51 @@ def main() -> None:
                   f"{spill_st}/{spill_ld} bytes spill stores/loads{extra}",
                   flush=True)
 
+    with phase("flash-256"):
+        # recurrentgemma-2b's local layers (src/repro/configs/
+        # recurrentgemma_2b.py): B=1, 10 heads over 1 kv head, S=4096,
+        # head dim 256, causal, window 2048
+        b, h, kv, s, d, w = 1, 10, 1, PREFILL_S, 256, 2048
+        gen = torch.Generator(dev).manual_seed(12)
+        q = bshd(torch, gen, (b, s, h, d), torch.bfloat16, dev)
+        k, v = (bshd(torch, gen, (b, s, kv, d), torch.bfloat16, dev)
+                for _ in range(2))
+        label = (f"recurrentgemma-2b local layer B={b} H={h} KV={kv} S={s} "
+                 f"D={d} causal window={w}")
+        check_flash(q, k, v, True, w, f"{label} bf16")
+        check_flash(q.float(), k.float(), v.float(), True, w,
+                    f"{label} f32")
+        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, window=w), 20)
+        ms_f32 = cuda_ms(torch, lambda: flash_attention(
+            q.float(), k.float(), v.float(), window=w), 3)
+        plain = cuda_ms(torch, lambda: attention_ref(q, k, v, window=w), 3)
+        # the yardstick: K and V expanded to H heads, the window as a mask
+        qe, ke, ve = (t.repeat_interleave(h // t.shape[1], dim=1)
+                      .contiguous() for t in (q, k, v))
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - w)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_err = (sdpa(qe, ke, ve, attn_mask=mask).float() -
+                   attention_ref(q, k, v, window=w).float()).abs().max() \
+            .item()
+        lib = cuda_ms(torch, lambda: sdpa(qe, ke, ve, attn_mask=mask), 20)
+        bound, by, flops, nbytes = attention_bound_ms(
+            b, h, kv, s, d, True, 2, peak_bf16, peak_bw, window=w)
+        print(f"flash_attention {label} bf16: kernel {ms:.4f} ms (f32 "
+              f"kernel {ms_f32:.4f} ms), plain (attention_ref) "
+              f"{plain:.4f} ms, library (scaled_dot_product_attention on "
+              f"expanded K/V with the window as a mask, err {lib_err:.2e}) "
+              f"{lib:.4f} ms; bound {bound:.4f} ms by {by} "
+              f"({flops / 1e9:.2f} GFLOP at the bf16 tensor peak, "
+              f"{nbytes / 1e6:.1f} MB moved); kernel at "
+              f"{flops / ms / 1e9:.2f} TFLOP/s, {bound / ms * 100:.1f}% of "
+              f"bound", flush=True)
+        record["flash_attention_d256"] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=lib)
+        del q, k, v, qe, ke, ve, mask
+
     from repro_torch.configs import get_config
     from repro_torch.models.lm import (
         decode_step, head_logits, init_cache, init_params, lm_forward)
@@ -2450,6 +3058,32 @@ def main() -> None:
         ctx.lm_params, ctx.lm_name = serve_params, LM_ARCH
         checkpoint_phase(ctx)
         del serve_params, params, ctx.lm_params
+
+    # the other LM families and the frontends, each model freed before
+    # the next is loaded
+    torch.cuda.empty_cache()
+    arch_ctx = types.SimpleNamespace(
+        torch=torch, np=np, dev=dev, build=build, on_card=True,
+        config=get_config, sync=torch.cuda.synchronize,
+        cuda_ms=lambda fn: cuda_ms(torch, fn, 1), prefill_s=PREFILL_S,
+        cvc_s=256, rg_cvc_s=PREFILL_S, decode_steps=ARCH_DECODE_STEPS,
+        arch_records={})
+    with phase("lm-archs"), torch.no_grad():
+        lm_archs_phase(arch_ctx)
+        launches["flash_attention_d256"] = arch_ctx.arch_records[
+            "recurrentgemma-2b"]["launches"]["flash_attention_d256"]
+
+    with phase("lm-archs-card-vs-cpu"), torch.no_grad():
+        lm_archs_card_vs_cpu_phase(arch_ctx)
+
+    with phase("lm-archs-decode"), torch.no_grad():
+        lm_archs_decode_phase(arch_ctx)
+
+    with phase("lm-archs-serve"), torch.no_grad():
+        lm_archs_serve_phase(arch_ctx)
+
+    with phase("lm-frontends"), torch.no_grad():
+        lm_frontends_phase(arch_ctx)
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,

@@ -15,7 +15,7 @@
 //   written through its own element strides for b, h and s (d is
 //   contiguous), so the caller can pass (B, S, H, D) projections as
 //   transposed views with no copy. Query head h reads kv head h / (H / KV):
-//   K and V are never expanded to H heads. D is 64 or 128; any S >= 1.
+//   K and V are never expanded to H heads. D is 64, 128 or 256; any S >= 1.
 //
 // Two kernels, one per input type:
 //   flash_fwd_wgmma (bf16): both products on the tensor cores (wgmma), fed
@@ -28,7 +28,8 @@
 // 2 * 2 * B*H * S^2/2 * D flops on 4 * B*H*S*D elements; at the llama3.2-1b
 // shape (B=1, H=32, S=4096, D=64) that is 68.7 GFLOP on 67 MB of bf16, so
 // the least time is the tensor cores' 0.0695 ms (the CUDA cores' f32 rate
-// would need 1.03 ms).
+// would need 1.03 ms). recurrentgemma-2b's local layers (10 heads over one
+// kv head, D = 256, window 2048) do 64.4 GFLOP per S = 4096 prefill.
 //
 // Masking follows the TPU kernel. Masked scores get the finite sentinel
 // -1e30, not -inf: when a row's first visited tile is fully masked (a
@@ -58,7 +59,9 @@
 // either a broadcast or conflict-free: 8 vector loads feed 64 FMAs. The row
 // max and sum of a row are reduced across the 16 lanes that hold it with
 // warp shuffles. Query tiles are issued heaviest first (the last causal
-// tile sees the most keys) to shorten the tail wave.
+// tile sees the most keys) to shorten the tail wave. At D = 256 the three
+// staged tiles and P take 217,088 bytes of shared memory, under the
+// 232,448 a block may opt in to.
 namespace f32 {
 
 constexpr int kBQ = 64;
@@ -261,10 +264,12 @@ int launch(const Args& a, int B, cudaStream_t st) {
 }  // namespace f32
 
 // ----------------------------------------------------------------- bf16
-// flash_fwd_wgmma: a block of 288 threads owns 128 query rows of one
-// (batch, head): two consumer warpgroups of 64 rows each (wgmma's M) and
-// one producer warp. The producer's first lane loads the Q tile once and
-// then streams K/V tiles of BK keys (128 at D = 64, 64 at D = 128) through
+// flash_fwd_wgmma: at D = 64 and 128 a block of 288 threads owns 128 query
+// rows of one (batch, head): two consumer warpgroups of 64 rows each
+// (wgmma's M) and one producer warp; at D = 256 a block of 160 threads owns
+// 64 rows, with one consumer warpgroup (see the register budget below).
+// The producer's first lane loads the Q tile once and
+// then streams K/V tiles of BK keys (128 at D = 64, else 64) through
 // a ring of two shared-memory stages with TMA; each stage has a "full"
 // mbarrier (the TMA bytes have landed) and an "empty" one (all 8 consumer
 // warps are done with it). TMA
@@ -294,30 +299,32 @@ int launch(const Args& a, int B, cudaStream_t st) {
 // Registers bound the tile: 9 warps share an SM's four register files as
 // 3 + 2 + 2 + 2, so ptxas may give a thread at most 168. At D = 128 the O
 // accumulator takes 64 of them, so K/V tiles are 64 keys there (S and the
-// split P take half as many) and nothing spills.
+// split P take half as many) and nothing spills. At D = 256 the O
+// accumulator alone is 128 registers a thread, so two consumer warpgroups
+// cannot fit under 168: that instantiation runs one consumer warpgroup
+// (BQ = 64) and the producer warp, 5 warps whose threads may hold up to
+// 255 registers, with no need to move registers between warpgroups
+// (setmaxnreg). Its shared memory, Q 32 KB + 2 stages of K/V at BK = 64
+// (128 KB) + the O staging rows (33 KB), is 194 KB. One such block fits on
+// an SM, so nothing overlaps one block's softmax with another's wgmma.
 //
 // What the design leaves for later: a persistent scheduler over the query
 // tiles, two consumer warpgroups that take turns on the tensor cores
 // (ping-pong), and softmax overlapped with the next tile's wgmma.
 namespace tc {
 
-constexpr int kBQ = 128;  // query rows per block
 constexpr int kStages = 2;
-constexpr int kWG = 2;    // consumer warpgroups
-constexpr int kThreads = kWG * 128 + 32;
 constexpr float kNegInf = -1e30f;
 
-// keys per K/V tile at head dim D
-template <int D>
-constexpr int block_k() {
-  return D == 64 ? 128 : 64;
-}
-
-// Shared memory, byte offsets from a 1024-byte-aligned base. A tile of
-// D = 128 columns is two 64-column halves, each as TMA writes one box.
+// The tile at head dim D and the shared memory, byte offsets from a
+// 1024-byte-aligned base. A tile of D columns is D / 64 halves of 64
+// columns, each as TMA writes one box.
 template <int D>
 struct Layout {
-  static constexpr int kBK = block_k<D>();
+  static constexpr int kWG = D == 256 ? 1 : 2;  // consumer warpgroups
+  static constexpr int kBQ = 64 * kWG;          // query rows per block
+  static constexpr int kThreads = kWG * 128 + 32;
+  static constexpr int kBK = D == 64 ? 128 : 64;  // keys per K/V tile
   static constexpr int kHalves = D / 64;
   static constexpr uint32_t kQHalf = kBQ * 128;
   static constexpr uint32_t kTileHalf = kBK * 128;
@@ -341,13 +348,13 @@ struct Args {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Layout<D>::kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, Args a) {
   using L = Layout<D>;
   using namespace hopper;
-  constexpr int kBK = L::kBK;
+  constexpr int kBK = L::kBK, kBQ = L::kBQ, kWG = L::kWG;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t pad = (1024 - (raw & 1023)) & 1023;
@@ -553,12 +560,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const Args& a, int B, cudaStream_t st) {
-  const int smem = (int)Layout<D>::kBytes;
+  using L = Layout<D>;
+  const int smem = (int)L::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + kBQ - 1) / kBQ, B * a.H);
-  flash_fwd_wgmma<D><<<grid, kThreads, smem, st>>>(tq, tk, tv, a);
+  const dim3 grid((a.S + L::kBQ - 1) / L::kBQ, B * a.H);
+  flash_fwd_wgmma<D><<<grid, L::kThreads, smem, st>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }
 
@@ -634,7 +642,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const long long* strides, int causal,
                                    int window, float scale, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || S < 1 || H % KV != 0 || window < 0 ||
-      (long long)B * H > 65535 || (D != 64 && D != 128))
+      (long long)B * H > 65535 || (D != 64 && D != 128 && D != 256))
     return (int)cudaErrorInvalidValue;
   const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                          (uintptr_t)o;
@@ -645,8 +653,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                 strides[0], strides[1], strides[2], strides[3], strides[4],
                 strides[5], strides[6], strides[7], strides[8], strides[9],
                 strides[10], strides[11], causal, window, scale};
-    return D == 64 ? f32::launch<float, 64>(a, B, st)
-                   : f32::launch<float, 128>(a, B, st);
+    return D == 64    ? f32::launch<float, 64>(a, B, st)
+           : D == 128 ? f32::launch<float, 128>(a, B, st)
+                      : f32::launch<float, 256>(a, B, st);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (addr % 16 != 0 || !tma_strides_ok(strides, B, H, S) ||
@@ -655,9 +664,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       !tma_strides_ok(strides + 9, B, H, S))
     return (int)cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv;
+  const int bq = D == 64    ? tc::Layout<64>::kBQ
+                 : D == 128 ? tc::Layout<128>::kBQ
+                            : tc::Layout<256>::kBQ;
+  const int bk = D == 64    ? tc::Layout<64>::kBK
+                 : D == 128 ? tc::Layout<128>::kBK
+                            : tc::Layout<256>::kBK;
   int err = tc::make_map(&tq, q, B, H, S, D, strides[0], strides[1],
-                         strides[2], tc::kBQ);
-  const int bk = D == 64 ? tc::block_k<64>() : tc::block_k<128>();
+                         strides[2], bq);
   if (err == 0)
     err = tc::make_map(&tk, k, B, KV, S, D, strides[3], strides[4],
                        strides[5], bk);
@@ -667,12 +681,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (err != 0) return err;
   const tc::Args a{o, S, H, KV, strides[9], strides[10], strides[11],
                    causal, window, scale * 1.4426950408889634f};
-  return D == 64 ? tc::launch<64>(tq, tk, tv, a, B, st)
-                 : tc::launch<128>(tq, tk, tv, a, B, st);
+  return D == 64    ? tc::launch<64>(tq, tk, tv, a, B, st)
+         : D == 128 ? tc::launch<128>(tq, tk, tv, a, B, st)
+                    : tc::launch<256>(tq, tk, tv, a, B, st);
 }
 
 // dynamic shared memory per block of the bf16 kernel at head dim D
 extern "C" int flash_attention_bf16_smem_bytes(int D) {
-  return D == 64 ? (int)tc::Layout<64>::kBytes
-                 : D == 128 ? (int)tc::Layout<128>::kBytes : -1;
+  return D == 64    ? (int)tc::Layout<64>::kBytes
+         : D == 128 ? (int)tc::Layout<128>::kBytes
+         : D == 256 ? (int)tc::Layout<256>::kBytes
+                    : -1;
 }

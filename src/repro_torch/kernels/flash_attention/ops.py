@@ -20,10 +20,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 KERNEL = "flash_attention"
+#: the launch count of the kernels' head-dim-256 instantiations (the
+#: bf16 one a block of one consumer warpgroup), recurrentgemma's local layers
+KERNEL_D256 = "flash_attention_d256"
 SOURCE = "flash_attention.cu"
 IMPLS = ("cuda", "reference")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def _launch_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -93,7 +96,7 @@ def _launch_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    build.count_launch(KERNEL)
+    build.count_launch(KERNEL_D256 if d == 256 else KERNEL)
     return out
 
 
@@ -107,7 +110,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     impl: None picks by device — the CUDA kernel for CUDA tensors, the
     plain ``attention_ref`` (``"reference"``) for CPU tensors; ``"cuda"``
     demands the kernel and raises on CPU tensors. The kernels take f32 and
-    bf16, D in (64, 128), any S, and any strides whose last axis is
+    bf16, D in (64, 128, 256), any S, and any strides whose last axis is
     contiguous; bf16 also wants a 16-byte-aligned start and batch, head
     and sequence strides that are multiples of 8 values (TMA's rule).
     """

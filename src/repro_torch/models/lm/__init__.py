@@ -1,5 +1,7 @@
-"""The LM stack of the port: dense GQA transformers (llama3.2-1b, qwen2,
-...) for prefill and decode. See ``model`` for what is not ported yet."""
+"""The LM stack of the port, prefill and decode for every layer type of the
+reference: GQA and sliding-window attention, MLA, MoE, RG-LRU and RWKV6,
+with multi-codebook tokens and a VLM prefix. See ``model`` for what is not
+ported yet."""
 from repro_torch.models.lm.config import LMConfig, LayerSpec, Stage
 from repro_torch.models.lm.model import (
     cache_shapes, decode_step, embed_tokens, head_logits, init_cache,

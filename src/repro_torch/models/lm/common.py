@@ -34,6 +34,12 @@ def apply_norm(cfg, x: torch.Tensor, p: dict) -> torch.Tensor:
     return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
 
 
+def f32_leaves(p: dict, names) -> dict:
+    """The named leaves of a parameter dict upcast to f32 (the reference's
+    recurrent blocks compute in f32 whatever the model's dtype)."""
+    return {k: p[k].float() for k in names}
+
+
 def activation(cfg, x: torch.Tensor) -> torch.Tensor:
     if cfg.act == "silu":
         return F.silu(x)

@@ -111,7 +111,10 @@ class LMConfig:
             param_shapes(self)))
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: shared + top_k routed only)."""
+        """Active params per token (MoE: shared + top_k routed only). As in
+        the reference, it looks for "experts" in the key path, which no
+        expert leaf (``we_in``, ``we_gate``, ``we_out``) has, so a MoE
+        model reports its full count (ROADMAP Queue 3)."""
         from repro_torch.models.lm.model import param_shapes
         total = 0
         for path, shape in _shape_leaves(param_shapes(self)):

@@ -4,14 +4,17 @@ The port of ``repro.models.lm.model``. Parameters keep the reference's
 stacked layout: each stage's layer weights carry a leading ``repeat`` axis,
 so the trees match the reference's leaf for leaf. Where the reference runs
 a stage as one ``lax.scan`` over that axis, the port runs a Python loop
-over it. Multi-codebook embedding, the VLM prefix and multi-token
-prediction raise ``NotImplementedError``; ``lm_loss`` and ``chunked_xent``
-come with LM training (ROADMAP Queue 1, item 12).
+over it. Multi-codebook models (MusicGen) take (B, S, K) tokens and VLM
+backbones (InternVL) a ``prefix_embeds`` of patch embeddings before the
+text. The parameter tree holds DeepSeek-V3's multi-token-prediction
+(``mtp``) subtree; its forward comes with ``lm_loss`` and ``chunked_xent``
+and LM training (ROADMAP Queue 1, item 12).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import DeviceSpec, resolve_device
@@ -22,13 +25,13 @@ from repro_torch.models.lm.common import (
     apply_norm, dense_init, sinusoidal_embed)
 from repro_torch.models.lm.config import LMConfig
 
-_LATER = "comes with a later slice of the LM stack (ROADMAP Queue 1, item 12)"
+# leaves the reference's init fills with zeros (besides ``norm``-named ones)
+_ZEROS = ("bias", "ba", "bi", "conv_b", "ln_x_bias", "bq", "bk", "bv",
+          "mu_base", "w_base", "cmix_mu_k", "cmix_mu_r")
 
 
 # ----------------------------------------------------------------- param trees
 def param_shapes(cfg: LMConfig) -> Dict:
-    if cfg.mtp_depth > 0:
-        raise NotImplementedError(f"multi-token prediction {_LATER}")
     d, v = cfg.d_model, cfg.vocab_size
     tree: Dict = {}
     if cfg.num_codebooks > 1:
@@ -50,6 +53,13 @@ def param_shapes(cfg: LMConfig) -> Dict:
             tree["head"] = {"w": (d, cfg.num_codebooks * v)}
         else:
             tree["head"] = {"w": (d, v)}
+    if cfg.mtp_depth > 0:
+        spec = cfg.stages[-1].layers[-1]
+        tree["mtp"] = {
+            "proj": (2 * d, d),
+            "norm_h": _norm_shape(cfg), "norm_e": _norm_shape(cfg),
+            "layer": layer_param_shapes(cfg, spec),
+        }
     return tree
 
 
@@ -68,19 +78,30 @@ def _map_leaves(tree: Any, fn: Callable[[str, tuple], Any],
 
 def init_params(cfg: LMConfig, generator: torch.Generator,
                 device: DeviceSpec = None) -> Dict:
-    """Parameters by the reference's name-based rules: norm scales are
-    ones, biases zeros, every other leaf ``dense_init`` with its (stacked)
-    shape. Drawn from ``generator`` on its own device and placed on
-    ``device`` (``cuda`` by default); a CPU generator gives the same
-    weights on every device."""
+    """Parameters by the reference's name-based rules: ``norm``-named
+    leaves, ``scale`` and ``ln_x_scale`` are ones; biases and the
+    RG-LRU/RWKV offsets zeros; ``lam`` is ``linspace(0.5, 2.0, s[0])``
+    over its stacked shape's first axis, so of shape (repeat,), one decay
+    rate per layer as the reference makes it (ROADMAP Queue 3); ``mu`` and
+    ``u`` uniform × 0.5; every other leaf ``dense_init`` with its (stacked)
+    shape. Drawn from ``generator`` on its own device (a CUDA generator
+    draws a full-width model in seconds) and placed on ``device``
+    (``cuda`` by default); a CPU generator gives the same weights on every
+    device."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
 
     def leaf(name: str, s: tuple) -> torch.Tensor:
-        if "norm" in name or name == "scale":
+        if "norm" in name or name in ("scale", "ln_x_scale"):
             return torch.ones(s, dtype=dt, device=dev)
-        if name in ("bias", "bq", "bk", "bv"):
+        if name in _ZEROS:
             return torch.zeros(s, dtype=dt, device=dev)
+        if name == "lam":
+            return torch.from_numpy(np.linspace(0.5, 2.0, s[0])).to(
+                dtype=dt, device=dev)
+        if name in ("mu", "u"):
+            return (torch.rand(s, generator=generator, dtype=torch.float32,
+                               device=generator.device) * 0.5).to(dt).to(dev)
         return dense_init(generator, s, dt).to(dev)
 
     return _map_leaves(param_shapes(cfg), leaf)
@@ -96,9 +117,13 @@ def _at(tree: Any, r: int) -> Any:
 # -------------------------------------------------------------------- embedding
 def embed_tokens(cfg: LMConfig, params, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S) int, or (B, S, K) for a K-codebook model (the sum of
+    the per-codebook embeddings, MusicGen) → (B, S, D)."""
+    table = params["embed"]["table"]
     if cfg.num_codebooks > 1:
-        raise NotImplementedError(f"multi-codebook embedding {_LATER}")
-    h = params["embed"]["table"][tokens]
+        h = sum(table[k][tokens[..., k]] for k in range(cfg.num_codebooks))
+    else:
+        h = table[tokens]
     if cfg.pos_embed == "sinusoidal":
         if positions is None:
             positions = torch.arange(h.shape[1], device=h.device)
@@ -126,11 +151,13 @@ def _run_stages(cfg: LMConfig, params, h: torch.Tensor,
 
 def lm_forward(cfg: LMConfig, params, tokens: torch.Tensor,
                prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Returns final hidden states (B, S, D). On a CUDA tensor each
-    attention layer launches the flash kernel once."""
-    if prefix_embeds is not None:
-        raise NotImplementedError(f"the VLM prefix {_LATER}")
+    """Returns final hidden states (B, P + S, D), P the rows of
+    ``prefix_embeds`` (B, P, D) (a VLM's precomputed patch embeddings,
+    put before the text). On a CUDA tensor each GQA or local attention
+    layer launches the flash kernel once."""
     h = embed_tokens(cfg, params, tokens)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)
     h = _run_stages(cfg, params, h, positions)
     return apply_norm(cfg, h, params["final_norm"])
@@ -159,9 +186,10 @@ def init_cache(cfg: LMConfig, batch: int, s_max: int,
 
 def decode_step(cfg: LMConfig, params, cache, tokens: torch.Tensor,
                 pos: int) -> Tuple[torch.Tensor, Any]:
-    """One decode step. tokens (B, 1) int; pos: absolute position of this
-    token. Returns (logits (B, 1, V), cache); the cache is written in
-    place and returned as the same object."""
+    """One decode step. tokens (B, 1) int, or (B, 1, K) for a K-codebook
+    model; pos: absolute position of this token. Returns (logits (B, 1, V)
+    or (B, 1, K·V), cache); the cache is written in place and returned as
+    the same object."""
     h = embed_tokens(cfg, params, tokens,
                      positions=torch.full((1,), pos, device=tokens.device))
     for st, st_params, st_cache in zip(cfg.stages, params["stages"],

@@ -467,6 +467,88 @@ def test_flash_kernel_matches_plain(dev, dtype, causal, window, s, d, g,
     assert bool(((got.float() - want).abs() <= limit).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (True, 2048), (False, 64)])
+@pytest.mark.parametrize("s,g", [(1, 1), (65, 10), (200, 4), (4095, 10)])
+def test_flash_kernel_at_head_dim_256_matches_plain(dev, dtype, causal,
+                                                    window, s, g):
+    """The head-dim-256 instantiations (recurrentgemma's local layers: 10
+    query heads over 1 kv head, window 2048), counted apart."""
+    gen = torch.Generator(dev).manual_seed(s + g)
+    q = _bshd(gen, (1, s, g, 256), dtype, dev)
+    k, v = (_bshd(gen, (1, s, 1, 256), dtype, dev) for _ in range(2))
+    build.reset_launches()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window)
+    torch.cuda.synchronize()
+    assert build.launches["flash_attention_d256"] == 1
+    assert build.launches.get("flash_attention", 0) == 0
+    limit = ATOL + (2 ** -8 * want.abs() if dtype == torch.bfloat16 else 0)
+    assert bool(((got.float() - want).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "deepseek-v2-lite-16b",
+                                  "rwkv6-3b", "musicgen-large",
+                                  "internvl2-1b"])
+def test_new_archs_prefill_and_decode_on_the_card_match_cpu(dev, arch):
+    """Each SMOKE config (at the kernel's head dims: recurrentgemma's at
+    256, its full config's, musicgen's and internvl2's at 64) on the card
+    against the CPU:
+    prefill logits, then 4 decode steps. The weights are the first layers
+    of a 16 times deeper stack: the reference's init draws std repeat **
+    -0.5, and at a repeat of 1 or 2 the activations grow until f32 alone
+    is further than 1e-4 from the exact logits."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import (
+        decode_step, head_logits, init_cache, init_params, lm_forward)
+    from repro_torch.models.lm.config import Stage
+    from repro_torch.optim import tree_map
+    cfg = get_smoke_config(arch)
+    if arch == "recurrentgemma-2b":
+        cfg = dataclasses.replace(cfg, head_dim=256)
+    elif arch in ("musicgen-large", "internvl2-1b"):
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    deep = dataclasses.replace(cfg, stages=tuple(
+        Stage(st.layers, 16 * st.repeat) for st in cfg.stages))
+    params = init_params(deep, torch.Generator().manual_seed(2), dev)
+    params["stages"] = [tree_map(lambda t, n=st.repeat: t[:n], sp)
+                        for sp, st in zip(params["stages"], cfg.stages)]
+    cpu = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(2)
+    shape = (2, 64) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1
+                       else ())
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, shape))
+    prefix = None
+    if cfg.vision_prefix_len:
+        prefix = torch.as_tensor(rng.normal(size=(
+            2, cfg.vision_prefix_len, cfg.d_model)).astype(np.float32))
+    build.reset_launches()
+    with torch.no_grad():
+        got = head_logits(cfg, params, lm_forward(
+            cfg, params, toks.to(dev), None if prefix is None
+            else prefix.to(dev))[:, -1])
+        torch.cuda.synchronize()
+        want = head_logits(cfg, cpu, lm_forward(cfg, cpu, toks, prefix)
+                           [:, -1])
+        torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
+        launches = {k: v for k, v in build.launches.items() if v}
+        assert launches == ({"flash_attention_d256": 1}
+                            if arch == "recurrentgemma-2b" else
+                            {"flash_attention": cfg.num_layers}
+                            if arch in ("musicgen-large", "internvl2-1b")
+                            else {})
+        caches = {d: init_cache(cfg, 2, 16, d) for d in (dev, "cpu")}
+        for t in range(4):
+            out = {d: decode_step(cfg, p, caches[d], toks[:, t:t + 1].to(d),
+                                  t)[0] for d, p in ((dev, params),
+                                                     ("cpu", cpu))}
+            torch.testing.assert_close(out[dev].cpu(), out["cpu"],
+                                       atol=ATOL, rtol=RTOL)
+
+
 def _lm_cfg():
     """A narrow llama-like config with the kernel's head dim."""
     import dataclasses

@@ -131,8 +131,19 @@ def test_wrapper_dispatch_on_the_cpu():
         flash_attention(q, k, v, impl="pallas")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_wrapper_takes_head_dim_256(dtype):
+    """D = 256 (recurrentgemma's local layers) passes every check of the
+    wrapper but the device's: a CPU tensor is refused as such."""
+    q = torch.zeros((1, 10, 16, 256), dtype=dtype)
+    k = v = torch.zeros((1, 1, 16, 256), dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention(q, k, v, window=8, impl="cuda")
+
+
 @pytest.mark.parametrize("bad,match", [
-    (dict(d=32), "head dims"), (dict(kv=3), "do not fit"),
+    (dict(d=32), "head dims"), (dict(d=192), "head dims"),
+    (dict(kv=3), "do not fit"),
     (dict(dtype=torch.float16), "takes one of"),
     (dict(grad=True), "no backward")])
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
@@ -154,9 +165,9 @@ BF16_ATOL, BF16_REL = 1e-4, 2 ** -8
 
 def _kernel_model(q, k, v, causal, window, split_p=True):
     """What ``flash_fwd_wgmma`` computes, in plain torch on the CPU: bf16
-    q (B, H, S, D) and k, v (B, KV, S, D); per block of 128 query rows the
-    K/V tiles (128 keys, 64 at D = 128) that the TPU kernel's block skip
-    leaves; f32
+    q (B, H, S, D) and k, v (B, KV, S, D); per block of 128 query rows (64
+    at D = 256) the K/V tiles (128 keys, 64 at D = 128 and 256) that the
+    TPU kernel's block skip leaves; f32
     scores scaled by D^-0.5·log2(e) into the log2 domain, -1e30 where
     masked; an online softmax with exp2; P·V as P_hi·V + P_lo·V with P_hi
     = bf16(P), P_lo = bf16(P - P_hi) (``split_p=False``: P rounded once
@@ -167,7 +178,7 @@ def _kernel_model(q, k, v, causal, window, split_p=True):
     kf, vf = (t.float().repeat_interleave(g, dim=1) for t in (k, v))
     c = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
         math.log2(math.e), dtype=torch.float32)
-    bq, bk = 128, 128 if d == 64 else 64
+    bq, bk = 64 if d == 256 else 128, 128 if d == 64 else 64
     nk = -(-s // bk)
     out = torch.empty((b, h, s, d), dtype=torch.float32)
     for q0 in range(0, s, bq):
@@ -237,6 +248,18 @@ def test_bf16_kernel_arithmetic_is_within_one_rounding(causal, window, s, d,
     the -1e30 sentinel, the block skip, the kernel's tiles) stays within one
     bf16 rounding of the f32 reference, the limit the card holds it to."""
     q, k, v = _bf16_case(s + d + g, s, d, g)
+    assert _worst_over_limit(q, k, v, causal, window) <= 1.0
+
+
+@pytest.mark.parametrize("g", [1, 10])
+@pytest.mark.parametrize("s", [65, 200, 1024])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (True, 512), (False, 64)])
+def test_bf16_kernel_arithmetic_at_head_dim_256_is_within_one_rounding(
+        causal, window, s, g):
+    """The head-dim-256 instantiation (blocks of 64 query rows, K/V tiles
+    of 64 keys), with recurrentgemma's 10 query heads over one kv head."""
+    q, k, v = _bf16_case(s + g, s, 256, g, kv=1)
     assert _worst_over_limit(q, k, v, causal, window) <= 1.0
 
 

@@ -64,6 +64,8 @@ def test_fresh_import_loads_no_jax_and_no_repro():
                 "repro_torch.models.lm.config", "repro_torch.models.lm.common",
                 "repro_torch.models.lm.attention",
                 "repro_torch.models.lm.blocks", "repro_torch.models.lm.model",
+                "repro_torch.models.lm.moe", "repro_torch.models.lm.rglru",
+                "repro_torch.models.lm.rwkv",
                 "repro_torch.serve.engine", "repro_torch.convert",
                 "repro_torch.core.update", "repro_torch.core.pipeline",
                 "repro_torch.configs.gnn_gcn", "repro_torch.configs.gnn_sage",
@@ -206,6 +208,22 @@ def test_data_parallel_elastic_and_influence_are_ported():
         Plan.supersteps, exact_influence, DataMesh, ShardedPlanExecutor,
         data_mesh, stack_batches, superstep_decision,
         ElasticCoordinator.epoch_queue))
+
+
+def test_every_lm_layer_type_and_frontend_is_ported():
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models.lm import model, param_shapes
+    from repro_torch.models.lm.attention import (
+        mla_decode, mla_forward, sliding_window_attention)
+    from repro_torch.models.lm.moe import moe_forward
+    from repro_torch.models.lm.rglru import rglru_decode, rglru_forward
+    from repro_torch.models.lm.rwkv import rwkv_channel_mix, rwkv_time_mix
+    assert all(callable(f) for f in (
+        mla_decode, mla_forward, sliding_window_attention, moe_forward,
+        rglru_decode, rglru_forward, rwkv_channel_mix, rwkv_time_mix))
+    assert "prefix_embeds" in model.lm_forward.__code__.co_varnames
+    for arch in list_archs():
+        assert param_shapes(get_config(arch))
 
 
 # The reference's lock-discipline rule scopes ``src/repro/serve/``,

@@ -86,23 +86,49 @@ def test_llama_full_config_size():
     assert cfg.param_count() == 1_235_814_400        # 2.47 GB in bf16
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("deepseek-v2-lite-16b", "mla"), ("rwkv6-3b", "rwkv6"),
-    ("recurrentgemma-2b", "rglru"), ("deepseek-v3-671b", "multi-token")])
-def test_unported_layers_raise(arch, what):
-    with pytest.raises(NotImplementedError, match=what):
-        param_shapes(get_smoke_config(arch))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multicodebook_embedding_matches_jax(dtype):
+    """MusicGen's (B, S, K) tokens: the sum of the K codebooks' embeddings
+    plus the sinusoidal positions, in the reference's order of additions
+    (in bf16 within one bf16 ulp, as the norms above)."""
+    jcfg = dataclasses.replace(jax_get_smoke("musicgen-large"), dtype=dtype)
+    cfg = dataclasses.replace(get_smoke_config("musicgen-large"),
+                              dtype=dtype)
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(7))
+    p = lm_params_from_jax(_np(jp), "cpu")
+    toks = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 9, cfg.num_codebooks))
+    got = embed_tokens(cfg, p, torch.from_numpy(toks))
+    want = np.asarray(jmodel.embed_tokens(jcfg, jp, jnp.asarray(toks)),
+                      dtype=np.float32)
+    assert got.shape == (2, 9, cfg.d_model)
+    tol = dict(atol=ATOL, rtol=RTOL) if dtype == "float32" else \
+        dict(atol=0.0, rtol=2 ** -7)
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
 
 
-def test_multicodebook_and_prefix_raise():
-    cfg = get_smoke_config("musicgen-large")
-    with pytest.raises(NotImplementedError, match="multi-codebook"):
-        embed_tokens(cfg, {"embed": {"table": torch.zeros(1)}},
-                     torch.zeros((1, 2, cfg.num_codebooks), dtype=torch.long))
-    cfg = get_smoke_config("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="VLM prefix"):
-        lm_forward(cfg, {}, torch.zeros((1, 2), dtype=torch.long),
-                   prefix_embeds=torch.zeros((1, 1, cfg.d_model)))
+def test_vlm_prefix_goes_before_the_text():
+    """InternVL's patch embeddings are put before the text embeddings and
+    take positions 0..P-1: the text's hidden states depend on the prefix,
+    and the prefix's do not depend on the text."""
+    jcfg = jax_get_smoke("internvl2-1b")
+    cfg = get_smoke_config("internvl2-1b")
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(8))
+    p = lm_params_from_jax(_np(jp), "cpu")
+    rng = np.random.default_rng(8)
+    prefix = rng.normal(size=(2, cfg.vision_prefix_len, cfg.d_model)) \
+        .astype(np.float32) * 0.02
+    toks = rng.integers(0, cfg.vocab_size, (2, 8))
+    h = lm_forward(cfg, p, torch.from_numpy(toks),
+                   prefix_embeds=torch.from_numpy(prefix))
+    _close(h, jmodel.lm_forward(jcfg, jp, jnp.asarray(toks), remat=False,
+                                prefix_embeds=jnp.asarray(prefix)))
+    other = lm_forward(cfg, p, torch.from_numpy(toks[::-1].copy()),
+                       prefix_embeds=torch.from_numpy(prefix))
+    p_len = cfg.vision_prefix_len
+    assert torch.equal(h[:, :p_len], other[:, :p_len])
+    alone = lm_forward(cfg, p, torch.from_numpy(toks))
+    assert not torch.allclose(h[:, p_len:], alone, atol=1e-3)
 
 
 # ----------------------------------------------------------------- common
@@ -180,6 +206,49 @@ def test_layer_forward_matches_jax(model):
     want = jblocks.layer_forward(jcfg, spec, jlayer, jnp.asarray(x),
                                  jnp.asarray(pos))
     _close(got, want)
+
+
+@pytest.mark.parametrize("arch,stage,name", [
+    ("recurrentgemma-2b", 0, "layer0"), ("recurrentgemma-2b", 0, "layer2"),
+    ("deepseek-v2-lite-16b", 0, "layer0"),
+    ("deepseek-v2-lite-16b", 1, "layer0"), ("rwkv6-3b", 0, "layer0")])
+def test_every_new_layer_spec_forward_and_decode_match_jax(arch, stage,
+                                                            name):
+    """``layer_forward`` and 6 ``layer_decode`` steps of each new (mixer,
+    ffn) pair, (rglru, dense), (local, dense), (mla, dense), (mla, moe) and
+    (rwkv6, rwkv_cmix), on the reference's init with its matrices scaled
+    to std fan_in ** -0.5 (the decay and mixing leaves kept)."""
+    jcfg, cfg = jax_get_smoke(arch), get_smoke_config(arch)
+    spec = cfg.stages[stage].layers[int(name[-1])]
+    jp = _np(jmodel.init_params(jcfg, jax.random.PRNGKey(9)))
+    jlayer = jax.tree_util.tree_map_with_path(
+        lambda path, a: a[0] * np.float32(
+            a.shape[-2] ** -0.5 if a.ndim >= 3 and str(path[-1].key) not in
+            ("mu", "conv_w", "u") else 1.0),
+        jp["stages"][stage][name])
+    layer = lm_params_from_jax(jlayer, "cpu")
+    x = _x(cfg, s=16, seed=9)
+    pos = np.arange(x.shape[1])
+    _close(blocks.layer_forward(cfg, spec, layer, torch.from_numpy(x),
+                                torch.from_numpy(pos)),
+           jblocks.layer_forward(jcfg, spec, jlayer, jnp.asarray(x),
+                                 jnp.asarray(pos)))
+    shapes = blocks.layer_cache_shape(cfg, spec, 2, 8)
+    assert shapes == jblocks.layer_cache_shape(jcfg, spec, 2, 8)
+    cache = {k: torch.zeros(s, dtype=blocks._cache_dtype(cfg, k))
+             for k, s in shapes.items()}
+    jcache = {k: jnp.zeros(s, jblocks._cache_dtype(jcfg, k))
+              for k, s in shapes.items()}
+    step = jax.jit(lambda c, xt, t: jblocks.layer_decode(
+        jcfg, spec, jlayer, xt, c, t))
+    for t in range(6):
+        out, same = blocks.layer_decode(cfg, spec, layer, torch.from_numpy(
+            x[:, t:t + 1]), cache, t)
+        assert same is cache
+        jout, jcache = step(jcache, jnp.asarray(x[:, t:t + 1]), jnp.int32(t))
+        _close(out, jout)
+    for k in shapes:
+        _close(cache[k], jcache[k])
 
 
 @pytest.mark.parametrize("s", [16, 33])
