@@ -189,8 +189,35 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               internvl2-1b (a 256-row ``prefix_embeds`` before 4096 text
               tokens, 24 flash launches) at full width in bf16, then each
               cut to 2 layers in f32 with the card's logits against the
-              CPU's. Phases 15–19 are module functions (``lm_archs_phase``
-              and its siblings) that rehearse on the CPU with the SMOKE
+              CPU's.
+20. lm-train — the LM main path in training: the full llama3.2-1b (bf16)
+              through ``repro_torch.launch.train.train_loop`` with the
+              reference launcher's defaults (B=8, S=256, AdamW at lr 3e-4,
+              remat): 6 steps with a checkpoint after step 3 and exactly 32
+              flash launches a step (each layer's forward, and again in
+              remat's recompute; the backward differentiates the plain
+              attention), a run resumed from the checkpoint against the
+              uninterrupted one, before them 5 steps with no checkpoint
+              (the step time and tokens/s), 2 steps on one repeated batch
+              (the loss falls; the flash kernel's inputs from these steps,
+              B=8 S=256 H=32 KV=8 D=64 bf16, through the kernel against
+              ``plain_attention`` in f32), one step's device time split
+              (flash forward, attention backward recompute, GEMMs, xent,
+              optimizer, rest), 2 steps with ``--compress``; peak memory.
+21. lm-train-card-vs-cpu — its first 2 layers at full width in f32, B=1,
+              S=256: the loss and every gradient leaf, card against CPU,
+              with the CPU's float64 witness (tests/_lm_grad.py's rule).
+22. lm-archs-train — one train step (forward, backward, AdamW) per family,
+              each freed before the next: recurrentgemma-2b (B=1, S=4096:
+              the window binds, the head-dim-256 kernel runs), rwkv6-3b
+              (S=512), musicgen-large, internvl2-1b (256-row prefix), the
+              first two layers of deepseek-v2-lite-16b and deepseek-v3's
+              SMOKE config (MTP): finite loss and gradients, exact flash
+              launches, the flash kernel on each model's own inputs
+              against ``plain_attention`` in f32, step time, peak memory
+              beside the bytes reckoned.
+              Phases 15–22 are module functions (``lm_archs_phase`` and
+              its siblings) that rehearse on the CPU with the SMOKE
               configs.
 
 The second-to-last line is a JSON ``kernels`` record and the last line is
@@ -1254,11 +1281,12 @@ ARCH_DECODE_STEPS = 64
 # above E/k = 64/6, so one expert can take every token
 NO_DROP_CF = 11.0
 # device time inside these functions is read as one kind in a forward's
-# split (module, function): the MoE's routing, dispatch and combine, and
-# the recurrences' scans
-ARCH_RANGES = (("moe_dispatch", "moe", ("route", "dispatch", "combine")),
-               ("scan", "rglru", ("linear_scan",)),
-               ("scan", "rwkv", ("_wkv_chunk",)))
+# split (label, module[:class] under repro_torch, functions): the MoE's
+# routing, dispatch and combine, and the recurrences' scans
+ARCH_RANGES = (("moe_dispatch", "models.lm.moe",
+                ("route", "dispatch", "combine")),
+               ("scan", "models.lm.rglru", ("linear_scan",)),
+               ("scan", "models.lm.rwkv", ("_wkv_chunk",)))
 
 
 def flash_launches_of(cfg):
@@ -1316,7 +1344,9 @@ def arch_params(ctx, arch, cut, seed):
     def cast(tree, n=None):
         if isinstance(tree, dict):
             return {k: cast(v, n) for k, v in tree.items()}
-        return (tree if n is None else tree[:n]).to(dt)
+        # a copy even in the model's own dtype: a view would keep the
+        # whole stack alive
+        return (tree if n is None else tree[:n]).to(dt, copy=True)
     out = {k: cast(v) for k, v in full.items() if k != "stages"}
     out["stages"] = [cast(st, c.repeat) for st, c in zip(full["stages"],
                                                           cut.stages)]
@@ -1327,18 +1357,22 @@ def arch_params(ctx, arch, cut, seed):
 
 
 @contextlib.contextmanager
-def arch_ranges(torch):
-    """Wrap the functions of ARCH_RANGES in ``record_function`` ranges."""
+def record_ranges(torch, table):
+    """Wrap the functions of ``table`` (ARCH_RANGES, TRAIN_RANGES) in
+    ``record_function`` ranges; a class's functions are static methods."""
     import importlib
     with contextlib.ExitStack() as stack:
-        for label, mod_name, names in ARCH_RANGES:
-            mod = importlib.import_module(f"repro_torch.models.lm.{mod_name}")
+        for label, target, names in table:
+            mod_name, _, cls = target.partition(":")
+            owner = importlib.import_module(f"repro_torch.{mod_name}")
+            owner = getattr(owner, cls) if cls else owner
             for name in names:
-                def wrapped(*a, _fn=getattr(mod, name), _label=label, **kw):
+                def wrapped(*a, _fn=getattr(owner, name), _label=label,
+                            **kw):
                     with torch.profiler.record_function(_label):
                         return _fn(*a, **kw)
-                stack.enter_context(unittest.mock.patch.object(mod, name,
-                                                               wrapped))
+                stack.enter_context(unittest.mock.patch.object(
+                    owner, name, staticmethod(wrapped) if cls else wrapped))
         yield
 
 
@@ -1434,7 +1468,7 @@ def arch_prefill_phase(ctx, arch, prefix_rows=0):
     if logits.shape != (1, width) or not torch.isfinite(logits).all():
         raise AssertionError(f"{arch}: non-finite or misshapen logits")
     ms = ctx.cuda_ms(lambda: arch_last_logits(cfg, params, toks, prefix))
-    with arch_ranges(torch), profile(activities=[
+    with record_ranges(torch, ARCH_RANGES), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         arch_last_logits(cfg, params, toks, prefix)
         ctx.sync()
@@ -1727,6 +1761,499 @@ def lm_frontends_phase(ctx):
               f"{want.abs().max().item():.4f}", flush=True)
         torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
         del p, cpu_p
+
+
+# ------------------------------------------------------------ LM training
+# the reference launcher's defaults (python -m repro.launch.train): B=8,
+# S=256, AdamW at lr 3e-4, remat on
+TRAIN_B, TRAIN_S, TRAIN_LR = 8, 256, 3e-4
+# lm-train: 6 steps, a checkpoint after step 3 (--ckpt-every 4), then a run
+# resumed from it
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 4
+# resumed steps that are not bitwise the uninterrupted run's: the losses
+# within this (absolute, on losses near 12), with the nondeterministic op
+# named
+RESUME_ATOL = 1e-3
+# one train step per family (phase lm-archs-train): arch, depth cut, B, S
+ARCH_TRAIN = (("recurrentgemma-2b", None, 1, 4096),
+              ("rwkv6-3b", None, 1, 512),
+              ("musicgen-large", None, TRAIN_B, TRAIN_S),
+              ("internvl2-1b", None, TRAIN_B, TRAIN_S),
+              ("deepseek-v2-lite-16b", "first-two", TRAIN_B, TRAIN_S),
+              ("deepseek-v3-671b", "smoke", TRAIN_B, TRAIN_S))
+# a train step's device time is split by these ranges (as ARCH_RANGES):
+# the backward of a flash layer (the plain attention recomputed and
+# differentiated), the chunked cross entropy's forward and the optimizer;
+# the log-softmax backward's kernels count as xent too
+TRAIN_RANGES = (("attn_bwd_recompute", "models.lm.attention:"
+                 "FlashAttentionTrain", ("backward",)),
+                ("xent", "models.lm.model", ("_xent_chunk",)),
+                ("optimizer", "launch.train", ("apply_grads",)))
+
+
+def train_time_split(prof):
+    """A profiled train step's device time (µs): each kernel under a range
+    of TRAIN_RANGES counts to it; the others are the flash kernel (the
+    forward's launches and remat's recompute), GEMMs, the log-softmax
+    backward (xent) or the rest."""
+    labels = {label for label, *_ in TRAIN_RANGES}
+    split = dict(flash_fwd=0.0, attn_bwd_recompute=0.0, gemm=0.0,
+                 xent=0.0, optimizer=0.0, rest=0.0)
+    for ev in prof.events():
+        if not ev.kernels:
+            continue
+        label, up = None, ev
+        while up is not None and label is None:
+            label = up.name if up.name in labels else None
+            up = up.cpu_parent
+        for k in ev.kernels:
+            kind = label or ("flash_fwd" if "flash_fwd" in k.name else
+                             "gemm" if is_gemm(k.name) else
+                             "xent" if "softmax" in k.name.lower() else
+                             "rest")
+            split[kind] += k.duration
+    return split, sum(split.values())
+
+
+def train_args(**kw):
+    """The reference launcher's flags as ``train_loop`` takes them."""
+    base = dict(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S, lr=TRAIN_LR,
+                optimizer="adamw", ckpt_dir=None, ckpt_every=10,
+                compress=False, device=None)
+    base.update(kw)
+    return types.SimpleNamespace(**base)
+
+
+def train_launches_of(cfg, steps=1):
+    """Flash launches of ``steps`` train steps with remat: each GQA or
+    local layer launches the kernel in the forward and again when the
+    backward recomputes its repeat."""
+    return {k: 2 * v * steps for k, v in flash_launches_of(cfg).items()}
+
+
+def f64_witness():
+    """``tests/_f64.py``, shared with the tests: ``port_f64``, a dispatch
+    mode that runs every op in f64 (so the port's own f32 casts do not
+    round), and ``witness_misses``, the rule that holds an f32 gradient
+    leaf by leaf with that float64 witness."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _f64
+    return _f64
+
+
+@contextlib.contextmanager
+def flash_inputs(captured):
+    """While the block runs, keep a copy of the first inputs the flash
+    kernel's wrapper is given at each (shapes, dtype, window), in the
+    layout the LM passes them: ``hold_flash`` holds the kernel against its
+    plain version at exactly the path's shapes afterwards."""
+    from repro_torch.models.lm import attention
+    orig = attention.flash_attention
+
+    def spy(q, k, v, causal=True, window=0, impl=None):
+        key = (tuple(q.shape), tuple(k.shape), q.dtype, causal, window)
+        if key not in captured:
+            captured[key] = [t.detach().clone() for t in (q, k, v)]
+        return orig(q, k, v, causal=causal, window=window, impl=impl)
+    with unittest.mock.patch.object(attention, "flash_attention", spy):
+        yield
+
+
+def hold_flash(ctx, captured, label):
+    """Each input ``flash_inputs`` kept, through the kernel's wrapper,
+    against ``plain_attention`` (the function the backward differentiates)
+    in f32 on the same values: f32 within ATOL, bf16 within one bf16
+    rounding on top (BF16_REL), as kernels-random holds it — with ATOL in
+    units of the largest |v|. An output row is a weighted mean of v's
+    rows, so the kernel's absolute error scales with them: ATOL is set
+    for kernels-random's N(0, 1) values, and a model's v reaches |v|
+    near 40 at its init (printed here). There the tensor cores' f32 sums
+    leave more than the unscaled limit on outputs that cancel to near 0,
+    while P rounded once to bf16 (2^-8 of each weight) or a fault of the
+    batch or head strides or the mask puts errors of order 2^-9 |v|, or
+    |v| itself, far outside the scaled one."""
+    torch = ctx.torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.lm.attention import plain_attention
+    for (qs, ks, dtype, causal, window), (q, k, v) in captured.items():
+        assert causal, "the LM's attention is causal"
+        with torch.no_grad():
+            got = flash_attention(q, k, v, causal=True, window=window,
+                                  impl="cuda")
+            want = plain_attention(*(t.transpose(1, 2).float()
+                                     for t in (q, k, v)),
+                                   window).transpose(1, 2)
+        ctx.sync()
+        diff = (got.float() - want).abs()
+        scale = max(1.0, v.float().abs().max().item())
+        limit = ATOL * scale + (BF16_REL * want.abs()
+                                if dtype == torch.bfloat16 else 0.0)
+        b, h, s, d = qs
+        ctx.note("flash_attention_d256" if d == 256 else "flash_attention",
+                 diff.max().item(),
+                 f"{label}'s own inputs B={b} H={h} KV={ks[1]} S={s} D={d} "
+                 f"{str(dtype).split('.')[-1]} window {window} against "
+                 f"plain_attention in f32 (max |v| {scale:.4g}, worst error "
+                 f"/ limit {(diff / limit).max().item():.3f})",
+                 bool((diff <= limit).all() and torch.isfinite(got).all()))
+
+
+def timed_steps(ctx, train, times):
+    """Patch ``train.train_step`` so each call appends its time (ms; CUDA
+    events on the card, the host clock on the CPU) to ``times``."""
+    torch, orig = ctx.torch, train.train_step
+
+    def timed(*a, **kw):
+        if ctx.on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = orig(*a, **kw)
+            ev[1].record()
+            times.append(ev)
+        else:
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return unittest.mock.patch.object(train, "train_step", timed)
+
+
+def step_clock(ctx):
+    """Start a clock (CUDA events on the card, the host clock on the CPU);
+    the returned function synchronises and gives the ms since."""
+    torch = ctx.torch
+    if ctx.on_card:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+
+        def stop():
+            ev[1].record()
+            ctx.sync()
+            return ev[0].elapsed_time(ev[1])
+        return stop
+    t0 = time.perf_counter()
+    return lambda: (time.perf_counter() - t0) * 1e3
+
+
+def step_ms(ctx, times):
+    ctx.sync()
+    return [ev[0].elapsed_time(ev[1]) if ctx.on_card else ev for ev in times]
+
+
+def lm_train_phase(ctx):
+    """The LM main path: llama3.2-1b at its full config through the
+    launcher's ``train_loop``, with its defaults. 6 steps with a
+    checkpoint after step 3 (exact flash launches) after 5 steps with no
+    checkpoint (the step time), a run resumed from the checkpoint against
+    the uninterrupted one, 2 steps on one repeated batch (the loss falls;
+    the flash kernel held against its plain version on their inputs), 2
+    steps with ``--compress``; tokens/s, peak memory and one step's
+    device time split."""
+    torch, dev, build = ctx.torch, ctx.dev, ctx.build
+    from repro_torch.launch import train
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim import get_optimizer, tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+    cfg = ctx.config(LM_ARCH)
+    if ctx.on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = get_optimizer("adamw")
+    state = opt.init(params)
+    n = sum(t.numel() for t in tree_leaves(params))
+    b, s = ctx.train_b, ctx.train_s
+    # the step time, before any checkpoint of this phase is written: 5
+    # steps with no checkpoint directory, the median of the last 4 (the
+    # first pays each shape's first use)
+    clean = []
+    with timed_steps(ctx, train, clean):
+        params, state, _ = train.train_loop(
+            cfg, params, state, train_args(batch=b, seq=s, steps=5,
+                                           device=dev), opt,
+            log=lambda _: None)
+    clean = step_ms(ctx, clean)
+    med = float(ctx.np.median(clean[1:]))
+    print(f"step time with no checkpoint written "
+          f"({'CUDA events' if ctx.on_card else 'host clock'}): "
+          + " ".join(f"{x:.1f}" for x in clean)
+          + f" ms, median of the last 4 {med:.2f} ms, "
+          f"{b * s / med * 1e3:.0f} tokens/s", flush=True)
+
+    ck = os.path.join(ctx.work, "lm-train")
+    args = train_args(batch=b, seq=s, ckpt_dir=ck,
+                      ckpt_every=TRAIN_CKPT_EVERY, device=dev)
+    logs, times = [], []
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with timed_steps(ctx, train, times):
+        params, state, losses = train.train_loop(cfg, params, state, args,
+                                                 opt, log=logs.append)
+    ctx.sync()
+    run_s = time.perf_counter() - t0
+    got = {k: v for k, v in build.launches.items() if v}
+    want = train_launches_of(cfg, TRAIN_STEPS) if ctx.on_card else {}
+    ms = step_ms(ctx, times)
+    peak = torch.cuda.max_memory_allocated() if ctx.on_card else 0
+    print(f"{cfg.name}: {cfg.num_layers} layers, {cfg.dtype}, {n} "
+          f"parameters; train_loop B={b} S={s} AdamW lr {TRAIN_LR}, remat, "
+          f"a checkpoint after step {TRAIN_CKPT_EVERY - 1}: losses "
+          + " ".join(f"{losses[k]:.6f}" for k in sorted(losses))
+          + f"; step times ({'CUDA events' if ctx.on_card else 'host clock'}) "
+          + " ".join(f"{x:.1f}" for x in ms)
+          + f" ms: steps 2-3 {float(ctx.np.median(ms[2:4])):.2f} ms and "
+          f"steps 4-5 {float(ctx.np.median(ms[4:6])):.2f} ms (the median "
+          f"of each pair; steps 4-5 run while the checkpoint's writer "
+          f"thread writes step 3's); {run_s:.1f} s for the run (host "
+          f"clock, the checkpoint's host copy included); peak memory "
+          f"allocated "
+          f"{peak / 1e9:.2f} GB; flash launches {got} (want {want}, "
+          f"{sum(train_launches_of(cfg).values())} a step)", flush=True)
+    for line in logs:
+        print(f"  {line}", flush=True)
+    if got != want:
+        raise AssertionError(f"flash launches {got}, want {want}")
+    if not all(ctx.np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    ctx.train_launches = got
+
+    # resumed from the checkpoint after step 3: steps 4 and 5 again
+    t0 = time.perf_counter()
+    _, state2, resumed = train.train_loop(cfg, params, state, args, opt,
+                                          log=logs.append)
+    ctx.sync()
+    print(f"resumed run: '{[ln for ln in logs if ln.startswith('resumed')]}"
+          f"', losses {resumed} in "
+          f"{time.perf_counter() - t0:.1f} s (the restore included); "
+          f"uninterrupted {[losses[4], losses[5]]}", flush=True)
+    if sorted(resumed) != [4, 5]:
+        raise AssertionError(f"the resumed run ran steps {sorted(resumed)}")
+    del state2
+    if [resumed[4], resumed[5]] == [losses[4], losses[5]]:
+        print("resumed steps 4-5 bitwise the uninterrupted run's",
+              flush=True)
+    else:
+        batch = train.synthetic_batch(cfg, b, s, 0, dev)
+        g1, _ = train.grads_only(cfg, params, batch)
+        g2, _ = train.grads_only(cfg, params, batch)
+        names = ["/".join(map(str, path)) for path, x, y in zip(
+            train.leaf_paths(params), tree_leaves(g1), tree_leaves(g2))
+            if not torch.equal(x, y)]
+        del g1, g2
+        print(f"resumed steps 4-5 differ from the uninterrupted run's by "
+              f"{abs(resumed[4] - losses[4]):.3e}, "
+              f"{abs(resumed[5] - losses[5]):.3e} (limit {RESUME_ATOL}); "
+              f"two gradients of one batch at the same parameters differ "
+              f"bitwise in {names}: the embedding's index backward "
+              f"(index_put_ with accumulate) sums a token's rows in no "
+              f"fixed order", flush=True)
+        if max(abs(resumed[k] - losses[k]) for k in (4, 5)) > RESUME_ATOL:
+            raise AssertionError("the resumed run parts from the "
+                                 "uninterrupted one")
+
+    # 2 steps on one repeated batch: the loss falls; the flash kernel held
+    # against its plain version on the inputs these steps gave it
+    batch = train.synthetic_batch(cfg, b, s, 0, dev)
+    captured = {}
+    with flash_inputs(captured):
+        params, state, l1 = train.train_step(cfg, opt, params, state, batch,
+                                             TRAIN_LR)
+        params, state, l2 = train.train_step(cfg, opt, params, state, batch,
+                                             TRAIN_LR)
+    print(f"one batch twice: loss {l1.item():.6f} -> {l2.item():.6f}",
+          flush=True)
+    if not l2.item() < l1.item():
+        raise AssertionError("the loss did not fall on a repeated batch")
+    if ctx.on_card and not captured:
+        raise AssertionError("the train steps gave the flash kernel nothing")
+    hold_flash(ctx, captured, cfg.name)
+    del captured
+
+    # one step's device time split
+    with record_ranges(torch, TRAIN_RANGES), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, state, _ = train.train_step(cfg, opt, params, state, batch,
+                                            TRAIN_LR)
+        ctx.sync()
+    split, total = train_time_split(prof)
+    if ctx.on_card and (total <= 0 or split["attn_bwd_recompute"] <= 0
+                        or split["optimizer"] <= 0):
+        raise AssertionError(f"the profiler split is missing a part: "
+                             f"{split}")
+    share = {k: v / max(total, 1e-9) * 100 for k, v in split.items()}
+    print(f"one train step's device time (torch.profiler): "
+          + ", ".join(f"{k} {v / 1e3:.3f} ms ({share[k]:.1f}%)"
+                      for k, v in split.items())
+          + f"; total {total / 1e3:.3f} ms, device busy "
+          f"{total / 1e3 / med * 100:.1f}% of the {med:.2f} ms step",
+          flush=True)
+    ctx.train_record = dict(step_ms=med, tokens_s=b * s / med * 1e3,
+                            peak_gb=peak / 1e9, split=split)
+
+    # 2 steps with --compress
+    t0 = time.perf_counter()
+    params, state, closs = train.train_loop(
+        cfg, params, state, train_args(batch=b, seq=s, steps=2,
+                                       compress=True, device=dev), opt,
+        log=lambda _: None)
+    ctx.sync()
+    peak = torch.cuda.max_memory_allocated() if ctx.on_card else 0
+    print(f"--compress (1% top-k with error feedback), 2 steps: losses "
+          f"{closs} in {time.perf_counter() - t0:.1f} s (host clock); "
+          f"peak memory allocated {peak / 1e9:.2f} GB", flush=True)
+    if not all(ctx.np.isfinite(v) for v in closs.values()):
+        raise AssertionError(f"non-finite losses under --compress {closs}")
+    del params, state
+    if ctx.on_card:
+        torch.cuda.empty_cache()
+
+
+def lm_train_card_vs_cpu_phase(ctx):
+    """llama3.2-1b's first 2 layers at full width in f32, B=1, S=256: the
+    loss and every gradient leaf (flash kernel forward, plain backward on
+    the card) against the CPU's plain path, with the CPU's float64
+    witness, leaf by leaf (``tests/_f64.py``; the CPU's runs at nudged
+    parameters only where a leaf is refused)."""
+    torch = ctx.torch
+    from repro_torch.launch import train
+    from repro_torch.models.lm.config import Stage
+    from repro_torch.optim import tree_leaves, tree_map
+    full = ctx.config(LM_ARCH)
+    cfg = dataclasses.replace(full, dtype="float32", stages=(
+        Stage(full.stages[0].layers, 2),))
+    p = arch_params(ctx, LM_ARCH, cfg, 1)
+    ctx.build.reset_launches()
+    g, loss = train.grads_only(cfg, p, train.synthetic_batch(
+        cfg, 1, ctx.cvc_s, 0, ctx.dev))
+    ctx.sync()
+    launches = {k: v for k, v in ctx.build.launches.items() if v}
+    want_l = train_launches_of(cfg) if ctx.on_card else {}
+    g = [t.cpu() for t in tree_leaves(g)]
+    cpu_p = tree_map(lambda t: t.cpu(), p)
+    del p
+    t0 = time.perf_counter()
+    cbatch = train.synthetic_batch(cfg, 1, ctx.cvc_s, 0, "cpu")
+    g32, loss32 = train.grads_only(cfg, cpu_p, cbatch)
+    f64 = f64_witness()
+    with f64.port_f64():
+        g64, loss64 = train.grads_only(
+            cfg, tree_map(lambda t: t.double(), cpu_p), cbatch)
+
+    def more():
+        for i in range(f64.N_NUDGED):
+            rng = ctx.np.random.default_rng(100 + i)
+            nudged = tree_map(lambda t: f64.nudged(t, rng), cpu_p)
+            r32, _ = train.grads_only(cfg, nudged, cbatch)
+            with f64.port_f64():
+                r64, _ = train.grads_only(
+                    cfg, tree_map(lambda t: t.double(), nudged), cbatch)
+            yield tree_leaves(r32), tree_leaves(r64)
+    misses, fig = f64.witness_misses(
+        g, tree_leaves(g32), tree_leaves(g64),
+        ["/".join(map(str, path)) for path in train.leaf_paths(cpu_p)],
+        ATOL, more)
+    print(f"{LM_ARCH} cut to 2 layers, f32, B=1 S={ctx.cvc_s}: loss card "
+          f"{loss.item():.7f} CPU {loss32.item():.7f} (f64 "
+          f"{loss64.item():.10f}); gradients, max over {len(g)} leaves of "
+          f"max err / the leaf's largest entry (card = port, CPU = ref): "
+          + ", ".join(f"{k} {v:.3e}" if isinstance(v, float)
+                      else f"{k} {v}" for k, v in fig.items())
+          + f"; launches {launches} (want {want_l}); the CPU's runs "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if launches != want_l:
+        raise AssertionError(f"launches {launches}, want {want_l}")
+    torch.testing.assert_close(loss.cpu(), loss32, atol=ATOL, rtol=RTOL)
+    if misses:
+        raise AssertionError(f"gradient leaves where the card parts from "
+                             f"the CPU beyond the f64 witness (card vs "
+                             f"CPU, CPU f32 vs f64, card vs f64): {misses}")
+
+
+def lm_archs_train_phase(ctx):
+    """Train steps (forward, backward with remat, AdamW) per family at
+    full width, each model freed before the next: finite loss and
+    gradients, the exact flash launches, the flash kernel held against its
+    plain version on the inputs the steps gave it, the step time (the
+    second of two) and the peak memory beside the bytes reckoned for
+    it."""
+    torch, dev, build = ctx.torch, ctx.dev, ctx.build
+    from repro_torch.launch import train
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.lm.config import Stage
+    from repro_torch.optim import get_optimizer, tree_leaves
+    opt = get_optimizer("adamw")
+    ctx.arch_train = {}
+    for arch, cut, b, s in ctx.arch_train_cases:
+        if ctx.on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        if cut == "smoke":
+            cfg = ctx.smoke_config(arch)
+            params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev)
+        elif cut == "first-two":
+            full = ctx.config(arch)
+            cfg = dataclasses.replace(full, stages=(
+                Stage(full.stages[0].layers, 1),
+                Stage(full.stages[-1].layers, 1)))
+            params = arch_params(ctx, arch, cfg, 0)
+        else:
+            cfg = ctx.config(arch)
+            params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev)
+        state = opt.init(params)
+        n = sum(t.numel() for t in tree_leaves(params))
+        elem = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+        reckoned = n * (2 * elem + 8)
+        batch = train.synthetic_batch(cfg, b, s, 0, dev)
+        if ctx.on_card:
+            torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        captured = {}
+        # two steps, the second timed: the first pays each new shape's
+        # first use (and the copy of the flash kernel's inputs)
+        with flash_inputs(captured):
+            for _ in range(2):
+                clock = step_clock(ctx)
+                grads, loss = train.grads_only(cfg, params, batch)
+                finite = torch.stack([torch.isfinite(t).all()
+                                      for t in tree_leaves(grads)]).all()
+                params, state = train.apply_grads(opt, params, state, grads,
+                                                  TRAIN_LR)
+                ms = clock()
+                finite = bool(finite) and bool(torch.isfinite(loss))
+                if not finite:
+                    break
+        launches = {k: v for k, v in build.launches.items() if v}
+        want = train_launches_of(cfg, 2) if ctx.on_card else {}
+        peak = torch.cuda.max_memory_allocated() if ctx.on_card else 0
+        rows = cfg.vision_prefix_len
+        print(f"{arch}{f' ({cut})' if cut else ''}: {cfg.num_layers} "
+              f"layers, {cfg.dtype}, {n} parameters, B={b} S={s}"
+              f"{f' + {rows} prefix rows' if rows else ''}: "
+              f"loss {loss.item():.6f}, every gradient finite {finite}; "
+              f"the second step (grads_only + apply_grads) {ms:.1f} ms "
+              f"({'CUDA events' if ctx.on_card else 'host clock'}); peak "
+              f"memory allocated {peak / 1e9:.2f} GB against "
+              f"{reckoned / 1e9:.2f} GB reckoned for params, gradients and "
+              f"f32 moments; flash launches {launches} (want {want})",
+              flush=True)
+        if not finite:
+            raise AssertionError(f"{arch}: non-finite loss or gradient")
+        if launches != want:
+            raise AssertionError(f"{arch}: launches {launches}, want {want}")
+        if bool(captured) != bool(want):
+            raise AssertionError(f"{arch}: the flash kernel was given "
+                                 f"{len(captured)} shapes of input, with "
+                                 f"launches {want} wanted")
+        hold_flash(ctx, captured, arch)
+        del captured
+        ctx.arch_train[arch] = dict(launches=launches, peak_gb=peak / 1e9,
+                                    step_ms=ms)
+        del loss
+        del params, state, grads, batch
+        if ctx.on_card:
+            torch.cuda.empty_cache()
 
 
 def spearman(np, a, b) -> float:
@@ -2854,7 +3381,7 @@ def main() -> None:
             library_ms=lib)
         del q, k, v, qe, ke, ve, mask
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.lm import (
         decode_step, head_logits, init_cache, init_params, lm_forward)
     from repro_torch.models.lm.config import dense_stages
@@ -3067,7 +3594,7 @@ def main() -> None:
         config=get_config, sync=torch.cuda.synchronize,
         cuda_ms=lambda fn: cuda_ms(torch, fn, 1), prefill_s=PREFILL_S,
         cvc_s=256, rg_cvc_s=PREFILL_S, decode_steps=ARCH_DECODE_STEPS,
-        arch_records={})
+        arch_records={}, note=note)
     with phase("lm-archs"), torch.no_grad():
         lm_archs_phase(arch_ctx)
         launches["flash_attention_d256"] = arch_ctx.arch_records[
@@ -3084,6 +3611,25 @@ def main() -> None:
 
     with phase("lm-frontends"), torch.no_grad():
         lm_frontends_phase(arch_ctx)
+
+    # LM training: the launcher's loop on llama3.2-1b, card against CPU,
+    # and one step per family
+    arch_ctx.work, arch_ctx.train_b, arch_ctx.train_s = work, TRAIN_B, \
+        TRAIN_S
+    arch_ctx.smoke_config, arch_ctx.arch_train_cases = get_smoke_config, \
+        ARCH_TRAIN
+    with phase("lm-train"):
+        lm_train_phase(arch_ctx)
+        launches["flash_attention"] += arch_ctx.train_launches[
+            "flash_attention"]
+
+    with phase("lm-train-card-vs-cpu"):
+        lm_train_card_vs_cpu_phase(arch_ctx)
+
+    with phase("lm-archs-train"):
+        lm_archs_train_phase(arch_ctx)
+        launches["flash_attention_d256"] += arch_ctx.arch_train[
+            "recurrentgemma-2b"]["launches"]["flash_attention_d256"]
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,

@@ -5,7 +5,11 @@ the port of ``repro.models.lm.attention``.
   hand-written flash kernel (``kernels/csrc/flash_attention.cu``) once, with
   the window of a local layer; on the CPU it runs the plain online-softmax
   ``chunked_attention`` (global layers) or ``sliding_window_attention``
-  (local layers), the reference's own algorithms.
+  (local layers), the reference's own algorithms. When autograd records
+  on the card, the kernel runs inside ``FlashAttentionTrain``, whose
+  backward differentiates the plain version on the saved inputs: the
+  reference has no backward kernel either, and differentiates
+  ``chunked_attention``.
 * GQA uses the grouped formulation: query head h reads kv head h // G, and
   K/V are never expanded to H heads.
 * A local layer's prefill applies no logit softcap and its decode does,
@@ -80,6 +84,42 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, s, h, dv).to(q.dtype)
 
 
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int, chunk_k: int = 1024,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """A GQA or local layer's causal attention by the plain algorithms:
+    ``sliding_window_attention`` (window > 0, no softcap) or
+    ``chunked_attention``. q (B, S, H, D), k/v (B, S, KV, D)."""
+    if window > 0:
+        return sliding_window_attention(q, k, v, window)
+    return chunked_attention(q, k, v, causal=True, chunk_k=chunk_k,
+                             softcap=softcap)
+
+
+class FlashAttentionTrain(torch.autograd.Function):
+    """Causal attention for a train step on the card: the forward launches
+    the flash kernel (f32 or bf16, with a local layer's window) and saves
+    q, k and v; the backward recomputes ``plain_attention`` on them and
+    returns its gradients, the reference's gradient. q (B, S, H, D), k/v
+    (B, S, KV, D), read by the kernel as (B, heads, S, D) views."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, chunk_k: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.chunk_k = window, chunk_k
+        return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True, window=window,
+                               impl="cuda").transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = plain_attention(q, k, v, ctx.window, ctx.chunk_k)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None, None
+
+
 # ------------------------------------------------------------------- GQA mixer
 def gqa_params_shape(cfg):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -124,16 +164,17 @@ def gqa_forward(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
             raise NotImplementedError(
                 "the flash kernel applies no logit softcap; no config sets "
                 "one on a global attention layer")
-        # (B, S, heads, hd) passed as (B, heads, S, hd) views: the kernel
-        # reads through strides and writes its output in q's layout
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True, window=window,
-                              impl="cuda").transpose(1, 2)
-    elif window > 0:
-        out = sliding_window_attention(q, k, v, window)
+        if torch.is_grad_enabled():
+            out = FlashAttentionTrain.apply(q, k, v, window, chunk_k)
+        else:
+            # (B, S, heads, hd) passed as (B, heads, S, hd) views: the
+            # kernel reads through strides and writes its output in q's
+            # layout
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True,
+                                  window=window, impl="cuda").transpose(1, 2)
     else:
-        out = chunked_attention(q, k, v, causal=True, chunk_k=chunk_k,
-                                softcap=cfg.logit_softcap)
+        out = plain_attention(q, k, v, window, chunk_k, cfg.logit_softcap)
     return out.reshape(b, s, h * hd) @ p["wo"]
 
 

@@ -6,9 +6,12 @@ so the trees match the reference's leaf for leaf. Where the reference runs
 a stage as one ``lax.scan`` over that axis, the port runs a Python loop
 over it. Multi-codebook models (MusicGen) take (B, S, K) tokens and VLM
 backbones (InternVL) a ``prefix_embeds`` of patch embeddings before the
-text. The parameter tree holds DeepSeek-V3's multi-token-prediction
-(``mtp``) subtree; its forward comes with ``lm_loss`` and ``chunked_xent``
-and LM training (ROADMAP Queue 1, item 12).
+text. ``lm_loss`` is the next-token loss over a sequence-chunked cross
+entropy (``chunked_xent``: the (B, S, V) logits never exist at once), plus
+DeepSeek-V3's multi-token-prediction (``mtp``) term. With ``remat=True``
+one repeat of a stage's layers (the reference's scan body) is
+checkpointed when autograd records: its activations are recomputed in the
+backward pass.
 """
 from __future__ import annotations
 
@@ -16,8 +19,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceSpec, resolve_device
+from repro_torch.kernels.flash_attention.ref import pick_chunk
 from repro_torch.models.lm.blocks import (
     _cache_dtype, _norm_shape, layer_cache_shape, layer_decode,
     layer_forward, layer_param_shapes)
@@ -140,27 +145,110 @@ def head_logits(cfg: LMConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------- forward
 def _run_stages(cfg: LMConfig, params, h: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor, remat: bool = True) -> torch.Tensor:
+    """Every stage's layers, one repeat at a time. ``remat``: checkpoint
+    each repeat (the reference's ``jax.checkpoint`` of its scan body) when
+    autograd records; under ``torch.no_grad()`` nothing is checkpointed."""
+    remat = remat and torch.is_grad_enabled()
     for st, st_params in zip(cfg.stages, params["stages"]):
         for r in range(st.repeat):
-            for i, spec in enumerate(st.layers):
-                h = layer_forward(cfg, spec, _at(st_params[f"layer{i}"], r),
-                                  h, positions)
+            layer_p = _at(st_params, r)
+
+            def body(x, layer_p=layer_p, st=st):
+                for i, spec in enumerate(st.layers):
+                    x = layer_forward(cfg, spec, layer_p[f"layer{i}"], x,
+                                      positions)
+                return x
+            h = checkpoint(body, h, use_reentrant=False) if remat \
+                else body(h)
     return h
 
 
 def lm_forward(cfg: LMConfig, params, tokens: torch.Tensor,
-               prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+               prefix_embeds: Optional[torch.Tensor] = None,
+               remat: bool = True) -> torch.Tensor:
     """Returns final hidden states (B, P + S, D), P the rows of
     ``prefix_embeds`` (B, P, D) (a VLM's precomputed patch embeddings,
     put before the text). On a CUDA tensor each GQA or local attention
-    layer launches the flash kernel once."""
+    layer launches the flash kernel once, and once more in the backward
+    pass when ``remat`` recomputes its repeat."""
     h = embed_tokens(cfg, params, tokens)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)
-    h = _run_stages(cfg, params, h, positions)
+    h = _run_stages(cfg, params, h, positions, remat=remat)
     return apply_norm(cfg, h, params["final_norm"])
+
+
+def _xent_chunk(cfg: LMConfig, params, h_chunk: torch.Tensor,
+                labels_chunk: torch.Tensor, mask_chunk: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of masked NLL, sum of the mask) over one (B, C) chunk; a
+    K-codebook model's NLL is summed over its codebooks."""
+    logits = head_logits(cfg, params, h_chunk).float()
+    if cfg.num_codebooks > 1:
+        b, s, _ = logits.shape
+        logits = logits.reshape(b, s, cfg.num_codebooks, cfg.vocab_size)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels_chunk[..., None].long())[..., 0]
+    if cfg.num_codebooks > 1:
+        nll = nll.sum(-1)
+    return (nll * mask_chunk).sum(), mask_chunk.sum()
+
+
+def chunked_xent(cfg: LMConfig, params, h: torch.Tensor,
+                 labels: torch.Tensor, mask: torch.Tensor, chunk: int = 512,
+                 remat: bool = False) -> torch.Tensor:
+    """Mean NLL with (B, C, V) logits at a time, C = ``pick_chunk(S,
+    chunk)``; the chunk sums are added in order. ``remat``: recompute each
+    chunk's logits in the backward pass instead of keeping its softmax
+    (the reference's ``REPRO_XENT_REMAT=1``)."""
+    s = h.shape[1]
+    c = pick_chunk(s, chunk)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def body(hh, ll, mm):
+        return _xent_chunk(cfg, params, hh, ll, mm)
+    remat = remat and torch.is_grad_enabled()
+    for c0 in range(0, s, c):
+        args = (h[:, c0:c0 + c], labels[:, c0:c0 + c], mask[:, c0:c0 + c])
+        l, n = checkpoint(body, *args, use_reentrant=False) if remat \
+            else body(*args)
+        tot, cnt = tot + l, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(cfg: LMConfig, params, batch: Dict[str, torch.Tensor],
+            remat: bool = True) -> torch.Tensor:
+    """batch: tokens (B, S[, K]) int, loss_mask (B, S) float, optional
+    prefix_embeds (B, P, D). Next-token LM loss (position t predicts token
+    t + 1) over the text; with ``cfg.mtp_depth`` > 0 plus 0.3 x the MTP
+    loss (DeepSeek-V3: h_t and the embedding of token t + 1 through one
+    extra layer predict token t + 2, sharing ``final_norm`` and the
+    head)."""
+    tokens = batch["tokens"]
+    prefix = batch.get("prefix_embeds")
+    h = lm_forward(cfg, params, tokens, prefix_embeds=prefix, remat=remat)
+    p_len = 0 if prefix is None else prefix.shape[1]
+    h_in = h[:, p_len:][:, :-1]
+    labels = tokens[:, 1:]
+    mask = batch["loss_mask"][:, 1:].float()
+    loss = chunked_xent(cfg, params, h_in, labels, mask)
+    if cfg.mtp_depth > 0:
+        mtp = params["mtp"]
+        emb_next = embed_tokens(cfg, params, tokens[:, 1:])
+        h_n = apply_norm(cfg, h_in, mtp["norm_h"])
+        e_n = apply_norm(cfg, emb_next, mtp["norm_e"])
+        h2 = torch.cat([h_n, e_n], dim=-1) @ mtp["proj"]
+        spec = cfg.stages[-1].layers[-1]
+        h2 = layer_forward(cfg, spec, mtp["layer"], h2,
+                           torch.arange(h2.shape[1], device=h2.device))
+        h2 = apply_norm(cfg, h2, params["final_norm"])
+        loss = loss + 0.3 * chunked_xent(
+            cfg, params, h2[:, :-1], tokens[:, 2:],
+            batch["loss_mask"][:, 2:].float())
+    return loss
 
 
 # --------------------------------------------------------------------- decode

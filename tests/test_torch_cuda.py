@@ -614,3 +614,87 @@ def test_flash_kernel_refuses_grad(dev):
         flash_attention(q, k, v)
     with torch.no_grad():
         assert flash_attention(q, k, v).shape == q.shape
+
+
+# ------------------------------------------------------------ LM training
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_train_gradients_match_plain(dev, dtype, window, d):
+    """``FlashAttentionTrain``: the kernel's forward (one launch) against
+    ``plain_attention`` on the same inputs (f32 in summation order, bf16
+    within one rounding of the output), and its backward, which
+    differentiates ``plain_attention`` on the saved inputs, equal to the
+    plain path's gradients."""
+    from repro_torch.models.lm.attention import (
+        FlashAttentionTrain, plain_attention)
+    gen = torch.Generator(dev).manual_seed(d + window)
+    g = 10 if d == 256 else 2
+    q = torch.randn((2, 128, 2 * g, d), device=dev, generator=gen).to(dtype)
+    k, v = (torch.randn((2, 128, 2, d), device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    cot = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    build.reset_launches()
+    out = FlashAttentionTrain.apply(*ins, window, 1024)
+    got = torch.autograd.grad(out, ins, cot)
+    torch.cuda.synchronize()
+    name = "flash_attention_d256" if d == 256 else "flash_attention"
+    assert {k_: n for k_, n in build.launches.items() if n} == {name: 1}
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = plain_attention(*ref_ins, window)
+    want = torch.autograd.grad(plain, ref_ins, cot)
+    f32 = plain_attention(*(t.float() for t in (q, k, v)), window)
+    limit = ATOL + (2 ** -8 * f32.abs() if dtype == torch.bfloat16 else 0)
+    assert bool(((out.float() - f32).abs() <= limit).all())
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+
+
+def test_lm_train_step_on_the_card_matches_cpu(dev):
+    """``lm_loss`` and every gradient leaf of a narrow llama-like config
+    (head dim 64, f32) with remat, card against CPU: two flash launches
+    per layer (the forward and the backward's recompute). The weights are
+    the first layers of a 16 times deeper stack, as above. Where card and
+    CPU part by more than 1e-4 of a leaf's largest entry, the CPU's
+    float64 gradient is the witness, leaf by leaf (``_f64.witness_ok``):
+    the CPU's f32 must lie farther than 2.5e-5 from it (the largest over
+    its runs at these and at nudged parameters) and the card's within 4x
+    as far."""
+    import dataclasses
+    from _f64 import N_NUDGED, nudged, port_f64, witness_misses
+    from repro_torch.launch.train import grads_only, synthetic_batch
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.lm.config import Stage
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg = _lm_cfg()
+    deep = dataclasses.replace(cfg, stages=tuple(
+        Stage(st.layers, 16 * st.repeat) for st in cfg.stages))
+    params = init_params(deep, torch.Generator().manual_seed(3), dev)
+    params["stages"] = [tree_map(lambda t, n=st.repeat: t[:n].clone(), sp)
+                        for sp, st in zip(params["stages"], cfg.stages)]
+    cpu = tree_map(lambda t: t.cpu(), params)
+    build.reset_launches()
+    grads, loss = grads_only(cfg, params,
+                             synthetic_batch(cfg, 2, 64, 0, dev))
+    torch.cuda.synchronize()
+    assert build.launches["flash_attention"] == 2 * cfg.num_layers
+    batch = synthetic_batch(cfg, 2, 64, 0, "cpu")
+    want_g, want = grads_only(cfg, cpu, batch)
+    with port_f64():
+        g64, _ = grads_only(cfg, tree_map(lambda t: t.double(), cpu), batch)
+    torch.testing.assert_close(loss.cpu(), want, atol=ATOL, rtol=RTOL)
+
+    def more():
+        for i in range(N_NUDGED):
+            rng = np.random.default_rng(100 + i)
+            moved = tree_map(lambda t: nudged(t, rng), cpu)
+            r32, _ = grads_only(cfg, moved, batch)
+            with port_f64():
+                r64, _ = grads_only(cfg, tree_map(lambda t: t.double(),
+                                                  moved), batch)
+            yield tree_leaves(r32), tree_leaves(r64)
+    misses, _ = witness_misses(tree_leaves(grads), tree_leaves(want_g),
+                               tree_leaves(g64), tol=ATOL, more=more)
+    assert not misses, misses

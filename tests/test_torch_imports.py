@@ -76,7 +76,9 @@ def test_fresh_import_loads_no_jax_and_no_repro():
                 "repro_torch.serve.async_engine", "repro_torch.checkpoint",
                 "repro_torch.checkpoint.checkpointer", "repro_torch.dist",
                 "repro_torch.dist.data_parallel",
-                "repro_torch.train.elastic", "repro_torch.core.influence"):
+                "repro_torch.train.elastic", "repro_torch.core.influence",
+                "repro_torch.launch", "repro_torch.launch.train",
+                "repro_torch.optim.compression"):
         assert mod in got["modules"]
     assert got["loaded"] == []
 
