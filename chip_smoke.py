@@ -233,6 +233,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1889,6 +1890,30 @@ def hold_flash(ctx, captured, label):
         limit = ATOL * scale + (BF16_REL * want.abs()
                                 if dtype == torch.bfloat16 else 0.0)
         b, h, s, d = qs
+        if dtype == torch.bfloat16:
+            # the library's bf16 attention on the same inputs, against the
+            # same f32 result, under kernels-random's limit (unscaled) and
+            # this one (ROADMAP Queue 3)
+            from torch.nn.functional import scaled_dot_product_attention
+            mask = None
+            if window:
+                pos = torch.arange(s, device=q.device)
+                mask = (pos[None, :] <= pos[:, None]) & \
+                    (pos[None, :] > pos[:, None] - window)
+            with torch.no_grad():
+                lib = scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True)
+            ctx.sync()
+            unscaled = ATOL + BF16_REL * want.abs()
+            for who, out in (("kernel", got), ("sdpa", lib)):
+                e = (out.float() - want).abs()
+                print(f"  bf16 {who} B={b} H={h} KV={ks[1]} S={s} D={d} "
+                      f"window {window}: max err {e.max().item():.4g}; "
+                      f"worst error / limit {(e / unscaled).max().item():.3f}"
+                      f" unscaled (ATOL + 2^-8|want|), "
+                      f"{(e / limit).max().item():.3f} scaled (ATOL x max "
+                      f"|v| + 2^-8|want|)", flush=True)
         ctx.note("flash_attention_d256" if d == 256 else "flash_attention",
                  diff.max().item(),
                  f"{label}'s own inputs B={b} H={h} KV={ks[1]} S={s} D={d} "
@@ -2256,6 +2281,418 @@ def lm_archs_train_phase(ctx):
             torch.cuda.empty_cache()
 
 
+# the mesh phases (ROADMAP Queue 1, item 13)
+MESH_DECODE_STEPS = 16
+# the sharded model against the same run unsharded on a world-1 mesh: the
+# same arithmetic, except where DTensor hands an op a differently laid-out
+# operand (a GEMM's kernel may then sum in another order); held within one
+# bf16 rounding of the largest value (2^-8 of it), the bitwise
+# equality printed beside it
+MESH_REL = 2 ** -8
+# the expert-parallel MoE: deepseek-v2-lite-16b's layer at full width
+MOE_EP_ARCH, MOE_EP_B, MOE_EP_S, MOE_EP_MEMBERS = \
+    "deepseek-v2-lite-16b", 4, 1024, 4
+# capacity factors: MOE_DROP_CF, at which assignments drop, and NO_DROP_CF,
+# at which an expert's bucket holds every token of a member
+MOE_DROP_CF = 0.5
+# in bf16 the shmap path rounds to bf16 where the plain path stays f32, as
+# the reference's does: the expert hidden state, the exchanged outputs and
+# a member's output before the shared experts are added; with the final
+# sum's own rounding, held within four bf16 roundings of the largest |out|
+MOE_BF16_ROUNDINGS = 4
+
+
+def mesh_card_phase(ctx):
+    """llama3.2-1b under a real device mesh: a world-1 process group
+    (``nccl`` on the card, ``gloo`` on the CPU) and a (1, 1) ("data",
+    "model") ``DeviceMesh``; parameters placed by ``param_spec``, the cache
+    by ``cache_spec``, the batch by ``batch_spec``. Under
+    ``logical_rules(logical_rules_for(cfg, mesh), mesh)`` a prefill of
+    ``ctx.prefill_s`` tokens (the flash kernel under ``local_map``, one
+    launch per layer), MESH_DECODE_STEPS ``decode_step``s and one
+    ``launch.train`` step (``grads_only`` + ``apply_grads``; two flash
+    launches per layer with remat), each held against the same run
+    unsharded. The group is destroyed at the end."""
+    torch, np, dev, build = ctx.torch, ctx.np, ctx.dev, ctx.build
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import (
+        batch_spec, cache_spec, distribute_tree, logical_rules,
+        logical_rules_for, opt_spec, param_spec, placements)
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.lm import (
+        decode_step, head_logits, init_cache, init_params, lm_forward)
+    from repro_torch.optim.optimizers import (
+        get_optimizer, tree_leaves, tree_map)
+
+    dist.init_process_group("nccl" if ctx.on_card else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1))
+        cfg = ctx.mesh_cfg
+        rules = logical_rules_for(cfg, mesh)
+        print(f"{mesh}; rules {rules}", flush=True)
+
+        @contextlib.contextmanager
+        def sharded():
+            with logical_rules(rules, mesh), implicit_replication():
+                yield
+
+        def place(t, name):
+            return distribute_tensor(t, mesh, placements(
+                mesh, batch_spec(mesh, name, t.shape)), src_data_rank=None)
+
+        def held(what, got, want):
+            got = got.full_tensor() if hasattr(got, "full_tensor") else got
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            same = bool(torch.equal(got, want))
+            ok = err <= MESH_REL * scale and bool(torch.isfinite(got).all())
+            print(f"mesh-card {what}: max err {err:.4g} (max |want| "
+                  f"{scale:.4g}, limit {MESH_REL * scale:.4g}), bitwise "
+                  f"{same}", flush=True)
+            if not ok:
+                raise AssertionError(f"the sharded {what} is off the "
+                                     f"unsharded one by {err:.4g}")
+            return same
+
+        params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+        n_layers = cfg.num_layers
+        rng = np.random.default_rng(23)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (1, ctx.prefill_s)), device=dev)
+        pd = distribute_tree(mesh, params, param_spec)
+        specs = {}
+        for path, leaf in (((("stages", 0, "layer0", "mixer", "wq")),
+                            pd["stages"][0]["layer0"]["mixer"]["wq"]),
+                           (("embed", "table"), pd["embed"]["table"])):
+            specs[path[-1]] = (param_spec(mesh, path, leaf),
+                               tuple(leaf.placements))
+        print(f"param placements: {specs}", flush=True)
+        bitwise = {}
+        with torch.no_grad():
+            want = head_logits(cfg, params, lm_forward(cfg, params,
+                                                       toks)[:, -1])
+            ctx.sync()
+            build.reset_launches()
+            with sharded():
+                got = head_logits(cfg, pd, lm_forward(
+                    cfg, pd, place(toks, "tokens"))[:, -1])
+            ctx.sync()
+            n = build.launches.get("flash_attention", 0)
+            print(f"sharded prefill S={ctx.prefill_s}: logits "
+                  f"{type(got).__name__} {tuple(got.shape)} placements "
+                  f"{tuple(got.placements)}; flash_attention launches {n} "
+                  f"(want {n_layers if ctx.on_card else 0})", flush=True)
+            if ctx.on_card and n != n_layers:
+                raise AssertionError(f"flash_attention launched {n} times "
+                                     f"in the sharded prefill")
+            ctx.mesh_launches = {"flash_attention": n}
+            bitwise["prefill"] = held("prefill logits", got, want)
+            del got, want
+            cache = init_cache(cfg, 1, MESH_DECODE_STEPS, dev)
+            cache_d = distribute_tree(mesh, init_cache(
+                cfg, 1, MESH_DECODE_STEPS, dev), cache_spec)
+            errs = []
+            for i in range(MESH_DECODE_STEPS):
+                t = toks[:, i:i + 1]
+                lw, _ = decode_step(cfg, params, cache, t, i)
+                with sharded():
+                    lg, _ = decode_step(cfg, pd, cache_d,
+                                        place(t, "tokens"), i)
+                errs.append(held(f"decode step {i}", lg, lw))
+            bitwise["decode"] = all(errs)
+            del cache, cache_d, pd
+
+        # one train step, unsharded and sharded from the same weights
+        opt = get_optimizer("adamw")
+        batch = train.synthetic_batch(cfg, ctx.train_b, ctx.train_s, 0, dev)
+        p1 = tree_map(lambda t: t.clone(), params)
+        g1, l1 = train.grads_only(cfg, p1, batch)
+        ctx.sync()
+        build.reset_launches()
+        p2 = distribute_tree(mesh, params, param_spec)
+        with sharded():
+            g2, l2 = train.grads_only(cfg, p2, {k: place(v, k)
+                                                for k, v in batch.items()})
+        ctx.sync()
+        n = build.launches.get("flash_attention", 0)
+        want_n = 2 * n_layers if ctx.on_card else 0
+        print(f"sharded train step B={ctx.train_b} S={ctx.train_s}: "
+              f"flash_attention launches {n} (want {want_n}); loss "
+              f"{float(l1):.6f} unsharded, {float(l2.full_tensor()):.6f} "
+              f"sharded", flush=True)
+        if n != want_n:
+            raise AssertionError(f"flash_attention launched {n} times in "
+                                 f"the sharded train step")
+        ctx.mesh_launches["flash_attention"] += n
+        bitwise["loss"] = held("loss", l2, l1)
+        same = [held(f"gradient {'/'.join(map(str, path))}", b, a)
+                for path, a, b in zip(train.leaf_paths(g1), tree_leaves(g1),
+                                      tree_leaves(g2))]
+        bitwise["gradients"] = all(same)
+        s1 = opt.init(p1)
+        with sharded():
+            s2 = distribute_tree(mesh, opt.init(params),
+                                 lambda m, p, l: opt_spec(m, p, l, {}))
+            p2, s2 = train.apply_grads(opt, p2, s2, g2, TRAIN_LR)
+        p1, s1 = train.apply_grads(opt, p1, s1, g1, TRAIN_LR)
+        same = [held(f"updated {'/'.join(map(str, path))}", b, a)
+                for path, a, b in zip(train.leaf_paths(p1), tree_leaves(p1),
+                                      tree_leaves(p2))]
+        bitwise["update"] = all(same)
+        print(f"mesh-card bitwise against unsharded: {bitwise}", flush=True)
+        ctx.mesh_bitwise = bitwise
+        del p1, p2, s1, s2, g1, g2, params
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_ep_phase(ctx):
+    """One deepseek-v2-lite-16b MoE layer at full width (E=64, top-6,
+    d_model 2048, expert width 1408, 2 shared experts) through
+    ``moe_forward(..., dispatch="shmap")`` over a ``DataMesh`` of
+    MOE_EP_MEMBERS entries on ``ctx.dev`` along "model", at B=MOE_EP_B,
+    S=MOE_EP_S: with no drops held against the plain ``moe_forward`` (f32
+    within ATOL of the largest |out|, bf16 within one bf16 rounding of
+    it), each member's exchange bytes beside the reference's 2·E·C·D; at
+    MOE_DROP_CF, with drops, each member's tokens held against the plain
+    routed experts at the member's capacity, where a dropped assignment
+    writes nothing."""
+    torch = ctx.torch
+    from repro_torch.dist.data_parallel import DataMesh
+    from repro_torch.models.lm import moe
+    from repro_torch.models.lm.common import dense_init
+
+    base = ctx.config(MOE_EP_ARCH)
+    mesh = DataMesh([[ctx.dev] * ctx.moe_members], ("data", "model"))
+    gen = torch.Generator(ctx.dev).manual_seed(5)
+    p32 = {k: dense_init(gen, s, torch.float32)
+           for k, s in sorted(moe.moe_params_shape(base).items())}
+    b, s, d = ctx.moe_b, ctx.moe_s, base.d_model
+    x32 = torch.randn((b, s, d), generator=gen, device=ctx.dev)
+    e = base.moe_num_experts
+    print(f"{MOE_EP_ARCH} MoE layer: E={e} top-{base.moe_top_k} d_model "
+          f"{d} expert width {base.moe_d_ff} shared {base.moe_num_shared}; "
+          f"B={b} S={s} over {mesh}", flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        cfg = dataclasses.replace(base, moe_capacity_factor=NO_DROP_CF,
+                                  dtype=name)
+        p = {k: v.to(dtype) for k, v in p32.items()}
+        x = x32.to(dtype)
+        whole = moe.moe_forward(cfg, p, x)
+        stats = {}
+        ctx.sync()
+        t0 = time.perf_counter()
+        got = moe.moe_forward(cfg, p, x, dispatch="shmap", mesh=mesh,
+                              stats=stats)
+        ctx.sync()
+        sec = time.perf_counter() - t0
+        # the plain path on each member's tokens: routing then multiplies
+        # the same rows (in bf16 a router logit one rounding off can swap
+        # an expert at a tie, whatever the dispatch)
+        s_loc = s // stats["ep"]
+        want = torch.cat([moe.moe_forward(cfg, p, x[:, j * s_loc:(j + 1) *
+                                                    s_loc])
+                          for j in range(stats["ep"])], dim=1)
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        err_whole = (got.float() - whole.float()).abs().max().item()
+        limit = ATOL * scale if dtype == torch.float32 else \
+            MOE_BF16_ROUNDINGS * BF16_REL * scale
+        ok = err <= limit
+        cap = stats["capacity"]
+        formula = 2 * e * cap * d * x.element_size()
+        dropped = sum(m["dropped"] for m in stats["members"])
+        print(f"moe-ep {name} no drops (capacity factor {NO_DROP_CF}, "
+              f"member capacity C={cap}): max err {err:.4g} against "
+              f"moe_forward on each member's tokens (max |out| {scale:.4g},"
+              f" limit {limit:.4g}), {err_whole:.4g} against moe_forward on "
+              f"all of x at once; dropped {dropped}; {sec:.3f} s (host "
+              f"clock)", flush=True)
+        for j, m in enumerate(stats["members"]):
+            both = m["send_bytes"] + m["back_bytes"]
+            print(f"  member {j}: sends {m['send_bytes']} B, gets back "
+                  f"{m['back_bytes']} B, together {both} B against 2·E·C·D"
+                  f" = {formula} B; of it {both * (stats['ep'] - 1) // stats['ep']}"
+                  f" B leave the member", flush=True)
+            if both != formula:
+                raise AssertionError("exchange bytes off 2·E·C·D")
+        if dropped or not ok or not torch.isfinite(got).all():
+            raise AssertionError(f"the shmap MoE ({name}) is off by "
+                                 f"{err:.4g} with {dropped} drops")
+        del whole, want, got, p, x
+    # drops: each member's tokens against the plain routed experts at the
+    # member's capacity (the plain path writes nothing for a drop)
+    cfg = dataclasses.replace(base, moe_capacity_factor=MOE_DROP_CF,
+                              dtype="float32")
+    stats = {}
+    got = moe.moe_forward(cfg, p32, x32, dispatch="shmap", mesh=mesh,
+                          stats=stats)
+    cap, ep = stats["capacity"], stats["ep"]
+    s_loc = s // ep
+    xt = x32.reshape(-1, d)
+    want = torch.cat([moe.routed(cfg, p32, x32[:, j * s_loc:(j + 1) * s_loc]
+                                 .reshape(-1, d), cap).reshape(b, s_loc, d)
+                      for j in range(ep)], dim=1)
+    want = want + moe._shared_out(cfg, p32, xt).reshape(b, s, d)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    dropped = [m["dropped"] for m in stats["members"]]
+    print(f"moe-ep f32 with drops (capacity factor {MOE_DROP_CF}, member "
+          f"capacity C={cap}): dropped per member {dropped}; max err "
+          f"{err:.4g} against each member's plain routed experts at C "
+          f"(max |out| {scale:.4g}, limit {ATOL * scale:.4g})", flush=True)
+    if not sum(dropped) or not err <= ATOL * scale:
+        raise AssertionError("the drop case does not hold")
+
+
+def start_dryrun(out_dir, log_path):
+    """Start the dry run's subprocesses (CPU only, one after another, at
+    low priority and one thread) while the card phases run: llama3.2-1b
+    at every shape and the GCN, mesh "single". Returns the ``Popen``; its
+    log holds each command's wall clock."""
+    cells = ((["--arch", "llama3.2-1b", "--shape", "all", "--mesh",
+               "single", "--out", out_dir], "llama3.2-1b --shape all"),
+             (["--arch", "gnn-gcn", "--mesh", "single", "--out", out_dir],
+              "gnn-gcn"))
+    runner = (
+        "import subprocess, sys, time\n"
+        f"for argv, name in {cells!r}:\n"
+        "    t0 = time.perf_counter()\n"
+        "    rc = subprocess.call([sys.executable, '-m',\n"
+        "                          'repro_torch.launch.dryrun', *argv])\n"
+        "    print(f'dryrun {name}: {time.perf_counter() - t0:.1f} s wall '\n"
+        "          f'clock, exit {rc}', flush=True)\n"
+        "    if rc:\n"
+        "        sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    log = open(log_path, "w")
+    proc = subprocess.Popen(["nice", "-n", "19", sys.executable, "-c",
+                             runner], stdout=log, stderr=subprocess.STDOUT,
+                            env=env, cwd=ROOT, start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:         # the runner and its dry run
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    atexit.register(stop)
+    return proc
+
+
+def dryrun_phase(ctx):
+    """The port's dry run: wait for the subprocesses ``start_dryrun``
+    started, print their log, summarize their JSON, fail on a cell with an
+    error. Then the one-card anchor: the llama3.2-1b prefill at B=1,
+    S=``ctx.prefill_s`` counted as a (1, 1) cell on a fake world-1 group
+    (``make_test_mesh((1, 1))``), its GEMM flops outside attention held
+    equal to ``FlopCounterMode`` over the same prefill run for real on
+    ``ctx.dev`` (the flash kernel is no aten op: attention is added by
+    formula), and its roofline beside ``ctx.prefill_ms``, the card's
+    measured time for that prefill."""
+    torch = ctx.torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.lm import attention, head_logits, init_params
+    from repro_torch.models.lm import lm_forward
+
+    rc = ctx.dryrun_proc.wait(timeout=ctx.dryrun_timeout)
+    with open(ctx.dryrun_log) as f:
+        print("".join(line for line in f if "alltoall" not in line
+                      and "redistributing" not in line), flush=True)
+    if rc != 0:
+        raise AssertionError(f"the dry run exited {rc}")
+    cells = []
+    for name in sorted(os.listdir(ctx.dryrun_dir)):
+        with open(os.path.join(ctx.dryrun_dir, name)) as f:
+            cells.append(json.load(f))
+    for c in cells:
+        if "error" in c:
+            print(c.get("traceback", ""), flush=True)
+            raise AssertionError(f"dry-run cell {c['arch']} {c['shape']}: "
+                                 f"{c['error']}")
+        if "roofline" not in c:
+            print(f"{c['arch']} {c['shape']}: {c.get('skipped')}")
+            continue
+        h, r, m = c["hlo"], c["roofline"], c["memory"]
+        print(f"dry-run cell {c['arch']} {c['shape']} ({c['chips']} chips): "
+              f"per chip {h['flops']:.6g} flops ({h['dot_flops']:.6g} in "
+              f"dots), {h['bytes']:.6g} bytes, collectives "
+              f"{h['collectives']} ({h['collective_counts']}); roofline at "
+              f"H100 constants: compute {r['compute_s']:.6g} s, memory "
+              f"{r['memory_s']:.6g} s, collective {r['collective_s']:.6g} s "
+              f"-> {r['dominant']}; peak {m['peak_bytes'] / 1e9:.4g} GB "
+              f"per chip ({m['hbm_fraction'] * 100:.1f}% of 80 GB); step "
+              f"{c['compile_s']} s", flush=True)
+    print(subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.summarize", "--dir",
+         ctx.dryrun_dir], capture_output=True, text=True, check=True,
+        env=dict(os.environ, PYTHONPATH=SRC)).stdout, flush=True)
+
+    # the one-card anchor
+    cfg = ctx.mesh_cfg
+    s = ctx.prefill_s
+    dryrun.fake_group(1)
+    try:
+        mesh = make_test_mesh((1, 1))
+        orig = attention.plain_attention
+
+        def scoped(*a, **kw):
+            with hlo_analysis.scope("attention"):
+                return orig(*a, **kw)
+        with unittest.mock.patch.object(attention, "plain_attention",
+                                        scoped):
+            cell = dryrun.run_cell(
+                LM_ARCH, f"prefill_b1_s{s}", "one-card", verbose=False,
+                mesh=mesh, cfg=cfg, shape=ShapeSpec(
+                    f"prefill_b1_s{s}", s, 1, "prefill"))
+    finally:
+        dist.destroy_process_group()
+    h, r = cell["hlo"], cell["roofline"]
+    attn_dots = h["scoped_dot_flops"].get("attention", 0.0)
+    gemm = h["dot_flops"] - attn_dots
+    params = init_params(cfg, torch.Generator(ctx.dev).manual_seed(0),
+                         ctx.dev)
+    toks = torch.zeros((1, s), dtype=torch.long, device=ctx.dev)
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        head_logits(cfg, params, lm_forward(cfg, params, toks)[:, -1])
+    ctx.sync()
+    # on the CPU (a rehearsal) the real prefill's attention is the plain
+    # version, which the flop counter sees
+    real = float(fc.get_total_flops()) - (0.0 if ctx.on_card else attn_dots)
+    _, _, attn_flops, _ = attention_bound_ms(
+        1, cfg.num_heads, cfg.num_kv_heads, s, cfg.resolved_head_dim, True,
+        2, ctx.peak_bf16, ctx.peak_bw)
+    attn_flops *= cfg.num_layers
+    total = real + attn_flops
+    print(f"one-card anchor {LM_ARCH} prefill B=1 S={s} as a (1, 1) cell: "
+          f"per chip {h['flops']:.6g} flops ({h['dot_flops']:.6g} in dots, "
+          f"of which {attn_dots:.6g} the plain attention's), {h['bytes']:.6g}"
+          f" bytes (eager, unfused), collectives {h['collective_bytes']:.6g} "
+          f"B; roofline at H100 constants compute {r['compute_s'] * 1e3:.4f}"
+          f" ms, memory {r['memory_s'] * 1e3:.4f} ms", flush=True)
+    print(f"GEMM flops outside attention: counted {gemm:.0f}, "
+          f"FlopCounterMode over the card's prefill {real:.0f} "
+          f"({'equal' if gemm == real else 'DIFFERENT'}); with the flash "
+          f"kernel's causal attention by formula ({attn_flops:.6g}) the "
+          f"card's prefill does {total:.6g} flops: "
+          f"{total / ctx.peak_bf16 * 1e3:.4f} ms at the bf16 peak, against "
+          f"{ctx.prefill_ms:.3f} ms measured (CUDA events, lm-prefill) = "
+          f"{total / ctx.prefill_ms / 1e9:.2f} TFLOP/s", flush=True)
+    if gemm != real:
+        raise AssertionError(f"the anchor's GEMM flops {gemm} differ from "
+                             f"FlopCounterMode's {real}")
+    del params
+
+
 def spearman(np, a, b) -> float:
     """Spearman's rank correlation (tests/test_influence.py)."""
     ra = np.argsort(np.argsort(a))
@@ -2301,6 +2738,14 @@ def main() -> None:
     from repro_torch.kernels.spmm import (
         binary_tiles, csr_to_bcsr, spmm_bcsr, spmm_bcsr_ref,
         spmm_bcsr_stream, spmm_bcsr_sym)
+
+    # the port's dry run (CPU only) runs beside the card phases; phase
+    # dryrun reads it
+    dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    atexit.register(shutil.rmtree, dry_tmp, ignore_errors=True)
+    dry_dir = os.path.join(dry_tmp, "cells")
+    dry_log = os.path.join(dry_tmp, "dryrun.log")
+    dry_proc = start_dryrun(dry_dir, dry_log)
 
     with phase("build"):
         t0 = time.perf_counter()
@@ -3432,6 +3877,7 @@ def main() -> None:
         print(f"one prefill (lm_forward + head_logits, CUDA events, mean "
               f"of 3): {ms:.3f} ms, {PREFILL_S / ms * 1e3:.0f} tokens/s",
               flush=True)
+        prefill_ms = ms
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             last_logits(lm_cfg, params, toks)
@@ -3630,6 +4076,29 @@ def main() -> None:
         lm_archs_train_phase(arch_ctx)
         launches["flash_attention_d256"] += arch_ctx.arch_train[
             "recurrentgemma-2b"]["launches"]["flash_attention_d256"]
+
+    # the mesh: the model under a DeviceMesh, the expert-parallel MoE and
+    # the dry run
+    torch.cuda.empty_cache()
+    arch_ctx.mesh_cfg = lm_cfg
+    arch_ctx.moe_b, arch_ctx.moe_s, arch_ctx.moe_members = \
+        MOE_EP_B, MOE_EP_S, MOE_EP_MEMBERS
+    arch_ctx.peak_bf16, arch_ctx.peak_bw = peak_bf16, peak_bw
+    arch_ctx.prefill_ms = prefill_ms
+    arch_ctx.dryrun_proc, arch_ctx.dryrun_log, arch_ctx.dryrun_dir = \
+        dry_proc, dry_log, dry_dir
+    arch_ctx.dryrun_timeout = 300
+    with phase("mesh-card"):
+        mesh_card_phase(arch_ctx)
+        launches["flash_attention"] += arch_ctx.mesh_launches[
+            "flash_attention"]
+
+    torch.cuda.empty_cache()
+    with phase("moe-ep"), torch.no_grad():
+        moe_ep_phase(arch_ctx)
+
+    with phase("dryrun"):
+        dryrun_phase(arch_ctx)
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,

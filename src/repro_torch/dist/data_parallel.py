@@ -55,6 +55,7 @@ import torch
 
 from repro_torch.data.loader import consume_superstep, stage_superstep
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import data_axes
 from repro_torch.models.gnn import policy as gnn_policy
 from repro_torch.models.gnn.models import (
     GNNConfig, gnn_apply, masked_xent, output_logits,
@@ -123,11 +124,6 @@ def data_mesh(num_devices: Optional[int] = None) -> DataMesh:
     if n < 1 or n > have:
         raise ValueError(f"num_devices={num_devices} but {have} present")
     return DataMesh([torch.device("cuda", i) for i in range(n)], ("data",))
-
-
-def data_axes(mesh) -> Tuple[str, ...]:
-    """The data-parallel (DP/FSDP) axes of a mesh, outermost first."""
-    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 
 def mesh_world(mesh) -> int:

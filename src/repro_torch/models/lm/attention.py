@@ -25,13 +25,29 @@ the port of ``repro.models.lm.attention``.
   compressed space.
 * Decode stays plain tensor ops, as the reference computes it outside any
   Pallas kernel. The cache is updated in place.
+* Sharding: the reference's ``annotate`` calls stand at the same places
+  (the identity outside a ``logical_rules`` context). Under a device mesh
+  (DTensor inputs) attention runs inside ``local_map`` on each rank's
+  local tensors, the flash kernel (which reads raw pointers) on the card
+  and the plain version on the CPU: batch over the data axes, query heads
+  and kv heads over "model" where it divides them. Where it
+  divides the query heads but not the kv heads (llama3.2-1b's 8 kv heads
+  on a model axis of 16), the kv heads stay whole and each rank's query
+  heads read theirs, head h reading kv head h // (H / KV) of the global
+  numbering. Where XLA would reshard a reshape or a gradient by itself,
+  DTensor needs it asked for (``repro_torch.dist.splittable``,
+  ``grad_splittable``, ``grad_gathered``, ``on_grad``): each is the
+  identity on plain tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.dist import (
+    annotate, grad_gathered, grad_splittable, is_dtensor, on_grad,
+    splittable)
 from repro_torch.kernels.flash_attention import chunked_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF, pick_chunk
@@ -120,6 +136,79 @@ class FlashAttentionTrain(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+           chunk_k: int) -> torch.Tensor:
+    """One launch of the flash kernel on plain CUDA tensors q (B, S, H,
+    hd), k/v (B, S, KV, hd): through ``FlashAttentionTrain`` when autograd
+    records, else directly, (B, S, heads, hd) passed as (B, heads, S, hd)
+    views (the kernel reads through strides and writes its output in q's
+    layout)."""
+    if torch.is_grad_enabled():
+        return FlashAttentionTrain.apply(q, k, v, window, chunk_k)
+    return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=True, window=window,
+                           impl="cuda").transpose(1, 2)
+
+
+def kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, hl: int,
+                 g: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kv heads that query heads [h0, h0 + hl) read (head h reads kv
+    head h // g), from k/v (B, S, KV, hd) holding every kv head: a slice
+    when the local heads cover whole groups or lie in one, else one kv
+    head per query head."""
+    if hl % g == 0 and h0 % g == 0:
+        a, n = h0 // g, hl // g
+    elif g % hl == 0 and h0 // g == (h0 + hl - 1) // g:
+        a, n = h0 // g, 1
+    else:
+        idx = torch.div(torch.arange(h0, h0 + hl, device=k.device), g,
+                        rounding_mode="floor")
+        return k.index_select(2, idx), v.index_select(2, idx)
+    return k[:, :, a:a + n], v[:, :, a:a + n]
+
+
+def _attend_on_mesh(cfg, q, k, v, attend: Callable):
+    """``attend(q, k, v)`` of plain tensors, on DTensors q (B, S, H, hd) and
+    k/v (B, S, KV, hd): ``local_map`` over the mesh with batch on the data
+    axes and heads on "model" where it divides them (the reference's q/k/out
+    annotations), each rank attending with its own heads; where the kv
+    heads stay whole, each rank's query heads read theirs."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist import (
+        current_rules, fit_spec, logical_rules_for, placements, spec_for)
+    mesh = q.device_mesh
+    rules = current_rules() or logical_rules_for(cfg, mesh)
+
+    def placed(t, heads):
+        return placements(mesh, fit_spec(mesh, t.shape, spec_for(
+            ("batch", None, heads, None), rules)))
+    q_pl, kv_pl = placed(q, "heads"), placed(k, "kv_heads")
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+
+    def local(ql, kl, vl):
+        # a local gradient leaves local_map as a DTensor's shard, which
+        # DTensor reshapes with view: attention's transposed layout would
+        # be refused
+        ql, kl, vl = (on_grad(t, torch.Tensor.contiguous)
+                      for t in (ql, kl, vl))
+        hl = ql.shape[2]
+        if kl.shape[2] == kv and hl != h:
+            # query heads sharded over "model", kv heads whole
+            h0 = mesh.get_local_rank("model") * hl
+            kl, vl = kv_for_heads(kl, vl, h0, hl, h // kv)
+        return attend(ql, kl, vl)
+    # k/v replicated over an axis that splits the query heads: each rank's
+    # gradient is its heads' share of theirs, a partial sum over that axis
+    kv_grad = tuple(Partial() if qp.is_shard() and not kp.is_shard() else kp
+                    for qp, kp in zip(q_pl, kv_pl))
+    return local_map(local, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 # ------------------------------------------------------------------- GQA mixer
 def gqa_params_shape(cfg):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -141,9 +230,9 @@ def _project(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q = splittable(q, -1, h).reshape(b, s, h, hd)
+    k = splittable(k, -1, kv).reshape(b, s, kv, hd)
+    v = splittable(v, -1, kv).reshape(b, s, kv, hd)
     if cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -158,24 +247,28 @@ def gqa_forward(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     if window > 0:
         _check_window_length(s, window)
+    # SP→TP transition: gather the sequence once for q/k/v
+    x = annotate(x, "batch", None, "embed")
     q, k, v = _project(cfg, p, x, positions)
+    q = annotate(q, "batch", "seq", "heads", None)
+    k = annotate(k, "batch", "seq", "kv_heads", None)
     if x.device.type == "cuda":
         if window == 0 and cfg.logit_softcap > 0:
             raise NotImplementedError(
                 "the flash kernel applies no logit softcap; no config sets "
                 "one on a global attention layer")
-        if torch.is_grad_enabled():
-            out = FlashAttentionTrain.apply(q, k, v, window, chunk_k)
-        else:
-            # (B, S, heads, hd) passed as (B, heads, S, hd) views: the
-            # kernel reads through strides and writes its output in q's
-            # layout
-            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True,
-                                  window=window, impl="cuda").transpose(1, 2)
+
+        def attend(q, k, v):
+            return _flash(q, k, v, window, chunk_k)
     else:
-        out = plain_attention(q, k, v, window, chunk_k, cfg.logit_softcap)
-    return out.reshape(b, s, h * hd) @ p["wo"]
+        def attend(q, k, v):
+            return plain_attention(q, k, v, window, chunk_k,
+                                   cfg.logit_softcap)
+    out = _attend_on_mesh(cfg, q, k, v, attend) if is_dtensor(q) \
+        else attend(q, k, v)
+    out = annotate(out, "batch", "seq", "heads", None)
+    out = grad_splittable(out.reshape(b, s, h * hd), 2, h)
+    return grad_gathered(out @ p["wo"], 1)
 
 
 def gqa_decode(cfg, p: Dict, x: torch.Tensor, cache: Dict, pos: int,
@@ -194,6 +287,8 @@ def gqa_decode(cfg, p: Dict, x: torch.Tensor, cache: Dict, pos: int,
     slot = pos % s_max if window > 0 else min(pos, s_max - 1)
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
+    ck_a = annotate(ck, "batch", "cache_seq", "kv_heads", None)
+    cv_a = annotate(cv, "batch", "cache_seq", "kv_heads", None)
     # positions of cache slots
     idx = torch.arange(s_max, device=x.device)
     if window > 0:
@@ -203,14 +298,15 @@ def gqa_decode(cfg, p: Dict, x: torch.Tensor, cache: Dict, pos: int,
             (abs_pos <= pos)
     else:
         valid = idx <= pos
-    qg = q.reshape(b, 1, kv, h // kv, hd).permute(0, 2, 3, 1, 4)
-    s_ = torch.einsum("bkgqd,bskd->bkgqs", qg.float(), ck.float()) * \
+    qg = splittable(q, 2, kv).reshape(b, 1, kv, h // kv, hd).permute(
+        0, 2, 3, 1, 4)
+    s_ = torch.einsum("bkgqd,bskd->bkgqs", qg.float(), ck_a.float()) * \
         (hd ** -0.5)
     if cfg.logit_softcap > 0:
         s_ = cfg.logit_softcap * torch.tanh(s_ / cfg.logit_softcap)
     s_ = torch.where(valid, s_, NEG_INF)
     pr = torch.softmax(s_, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bkgqd", pr, cv.float())
+    out = torch.einsum("bkgqs,bskd->bkgqd", pr, cv_a.float())
     out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h * hd).to(x.dtype)
     return out @ p["wo"], {"k": ck, "v": cv}
 
@@ -275,9 +371,12 @@ def mla_forward(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
     h = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     r_kv = cfg.kv_lora_rank
+    # SP→TP: one shared full-seq gather for q/kv projections
+    x = annotate(x, "batch", None, "embed")
     c_kv, k_rope = _mla_kv_a(cfg, p, x, positions)
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
-    q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)  # (B,H,S,dn+dr)
+    q = annotate(torch.cat([q_nope, q_rope], dim=-1), "batch", "seq",
+                 "heads", None).transpose(1, 2)            # (B,H,S,dn+dr)
     qn, qr = q[..., :dn].float(), q[..., dn:].float()
     ck = pick_chunk(s, chunk_k)
     scale = (dn + dr) ** -0.5
@@ -305,7 +404,8 @@ def mla_forward(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
         m = m_cur
     out = acc / torch.clamp(l, min=1e-30)[..., None]          # (B,H,S,dv)
     out = out.transpose(1, 2).reshape(b, s, h * dv).to(x.dtype)
-    return out @ p["wo"]
+    out = annotate(out, "batch", "seq", None)
+    return grad_gathered(out @ p["wo"], 1)
 
 
 def mla_decode(cfg, p: Dict, x: torch.Tensor, cache: Dict, pos: int
@@ -329,13 +429,15 @@ def mla_decode(cfg, p: Dict, x: torch.Tensor, cache: Dict, pos: int
     wk_b = p["wk_b"].reshape(r_kv, h, dn).float()
     wv_b = p["wv_b"].reshape(r_kv, h, dv).float()
     q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wk_b)
-    s_ = (torch.einsum("bqhr,bsr->bhqs", q_abs, cc.float()) +
-          torch.einsum("bqhd,bsd->bhqs", q_rope.float(), cr.float())) * \
+    cc_a = annotate(cc, "batch", "cache_seq", None)
+    cr_a = annotate(cr, "batch", "cache_seq", None)
+    s_ = (torch.einsum("bqhr,bsr->bhqs", q_abs, cc_a.float()) +
+          torch.einsum("bqhd,bsd->bhqs", q_rope.float(), cr_a.float())) * \
         ((dn + dr) ** -0.5)
     valid = torch.arange(s_max, device=x.device) <= pos
     s_ = torch.where(valid, s_, NEG_INF)
     pr = torch.softmax(s_, dim=-1)
-    ctx = torch.einsum("bhqs,bsr->bqhr", pr, cc.float())      # (B,1,H,r)
+    ctx = torch.einsum("bhqs,bsr->bqhr", pr, cc_a.float())    # (B,1,H,r)
     out = torch.einsum("bqhr,rhd->bqhd", ctx, wv_b)           # (B,1,H,dv)
     out = out.reshape(b, 1, h * dv).to(x.dtype)
     return out @ p["wo"], {"c_kv": cc, "k_rope": cr}

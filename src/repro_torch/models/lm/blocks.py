@@ -14,6 +14,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.dist import annotate, grad_gathered
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import moe as moe_mod
 from repro_torch.models.lm import rglru as rglru_mod
@@ -62,12 +63,17 @@ def layer_param_shapes(cfg, spec: LayerSpec) -> Dict:
 
 # ------------------------------------------------------------------- applies
 def ffn_forward(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    # not in the reference: the SP→TP gather of the sequence before the
+    # column-parallel matmuls, as gqa_forward takes it before q/k/v (XLA
+    # inserts it by itself; DTensor cannot reshape a sequence-sharded x)
+    x = annotate(x, "batch", None, "embed")
     h = x @ p["w_in"]
     if cfg.glu:
         h = activation(cfg, x @ p["w_gate"]) * h
     else:
         h = activation(cfg, h)
-    return h @ p["w_out"]
+    h = annotate(h, "batch", "seq", "mlp")
+    return grad_gathered(h @ p["w_out"], 1)
 
 
 def layer_forward(cfg, spec: LayerSpec, p: Dict, x: torch.Tensor,
@@ -98,7 +104,7 @@ def layer_forward(cfg, spec: LayerSpec, p: Dict, x: torch.Tensor,
         x = x + out
     else:
         raise ValueError(spec.ffn)
-    return x
+    return annotate(x, "batch", "seq", "embed")
 
 
 def layer_cache_shape(cfg, spec: LayerSpec, batch: int, s_max: int) -> Dict:
@@ -155,4 +161,7 @@ def layer_decode(cfg, spec: LayerSpec, p: Dict, x: torch.Tensor,
         x = x + out
     else:
         raise ValueError(spec.ffn)
-    return x, cache
+    # not in the reference: a DTensor carries its placements from op to op
+    # (XLA re-decides them), so the row-parallel output's partial sum is
+    # resolved here, as the end of layer_forward resolves the prefill's
+    return annotate(x, "batch", None, "embed"), cache

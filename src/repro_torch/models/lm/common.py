@@ -16,15 +16,17 @@ import torch.nn.functional as F
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
+    # dims counted from the front here and below: DTensor (torch 2.11)
+    # keeps a negative dim unnormalized in some placements and refuses it
+    var = x32.square().mean(dim=x.ndim - 1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    mu = x32.mean(dim=x.ndim - 1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=x.ndim - 1, keepdim=True)
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
 
 
@@ -60,8 +62,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     angles = positions[..., None].float() * freqs            # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    x1, x2 = x.float().chunk(2, dim=x.ndim - 1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                    dim=x.ndim - 1)
     return out.to(x.dtype)
 
 

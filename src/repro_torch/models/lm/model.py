@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceSpec, resolve_device
+from repro_torch.dist import annotate, is_dtensor
 from repro_torch.kernels.flash_attention.ref import pick_chunk
 from repro_torch.models.lm.blocks import (
     _cache_dtype, _norm_shape, layer_cache_shape, layer_decode,
@@ -126,14 +127,37 @@ def embed_tokens(cfg: LMConfig, params, tokens: torch.Tensor,
     the per-codebook embeddings, MusicGen) → (B, S, D)."""
     table = params["embed"]["table"]
     if cfg.num_codebooks > 1:
-        h = sum(table[k][tokens[..., k]] for k in range(cfg.num_codebooks))
+        h = sum(_lookup(table[k], tokens[..., k])
+                for k in range(cfg.num_codebooks))
     else:
-        h = table[tokens]
+        h = _lookup(table, tokens)
     if cfg.pos_embed == "sinusoidal":
         if positions is None:
             positions = torch.arange(h.shape[1], device=h.device)
         h = h + sinusoidal_embed(positions, cfg.d_model).to(h.dtype)
     return h
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. Under a mesh (DTensor tokens) each rank looks up
+    its own tokens in the whole table, gathered as FSDP gathers a weight,
+    inside ``local_map``: the rows come out placed as the tokens are, and
+    the table's gradient is a partial sum over the axes that split the
+    tokens (DTensor's own ``index_put`` strategy for the backward fails on
+    torch 2.11)."""
+    if not is_dtensor(tokens):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = tokens.device_mesh
+    tok_pl = tuple(tokens.placements)
+    whole = (Replicate(),) * mesh.ndim
+    grad_pl = tuple(Partial() if p.is_shard() else Replicate()
+                    for p in tok_pl)
+    return local_map(lambda tab, tok: tab[tok], out_placements=list(tok_pl),
+                     in_placements=(whole, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def head_logits(cfg: LMConfig, params, h: torch.Tensor) -> torch.Tensor:
@@ -175,6 +199,7 @@ def lm_forward(cfg: LMConfig, params, tokens: torch.Tensor,
     h = embed_tokens(cfg, params, tokens)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    h = annotate(h, "batch", "seq", "embed")
     positions = torch.arange(h.shape[1], device=h.device)
     h = _run_stages(cfg, params, h, positions, remat=remat)
     return apply_norm(cfg, h, params["final_norm"])
@@ -189,8 +214,11 @@ def _xent_chunk(cfg: LMConfig, params, h_chunk: torch.Tensor,
     if cfg.num_codebooks > 1:
         b, s, _ = logits.shape
         logits = logits.reshape(b, s, cfg.num_codebooks, cfg.vocab_size)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels_chunk[..., None].long())[..., 0]
+    else:
+        logits = annotate(logits, "batch", "seq", "vocab")
+    last = logits.ndim - 1      # from the front, as common.rms_norm says
+    logp = torch.log_softmax(logits, dim=last)
+    nll = -torch.gather(logp, last, labels_chunk[..., None].long())[..., 0]
     if cfg.num_codebooks > 1:
         nll = nll.sum(-1)
     return (nll * mask_chunk).sum(), mask_chunk.sum()
@@ -280,6 +308,7 @@ def decode_step(cfg: LMConfig, params, cache, tokens: torch.Tensor,
     the same object."""
     h = embed_tokens(cfg, params, tokens,
                      positions=torch.full((1,), pos, device=tokens.device))
+    h = annotate(h, "batch", None, "embed")
     for st, st_params, st_cache in zip(cfg.stages, params["stages"],
                                        cache["stages"]):
         for r in range(st.repeat):

@@ -25,16 +25,36 @@ Unlike the reference's ``_moe_forward_sort`` (``REPRO_MOE_DISPATCH=sort``),
 a dropped assignment writes nothing: the reference sends it to (expert 0,
 slot 0) with value 0, which overwrites the first token routed to expert 0
 whenever any assignment is dropped (ROADMAP Queue 3). The port reads no
-``REPRO_MOE_DISPATCH``; the ``shmap`` (expert-parallel) path waits for the
-mesh tooling (ROADMAP Queue 1, item 13).
+``REPRO_MOE_DISPATCH``: ``moe_forward(..., dispatch="shmap")`` selects the
+expert-parallel path, the reference's ``_moe_forward_shmap``.
+
+Expert parallelism (``dispatch="shmap"``). The reference runs one
+``shard_map`` program over the mesh's "model" (EP) axis: each device routes
+its own tokens (batch over the data axes, the sequence over "model" when it
+divides), buckets them into an (E, C, D) send buffer in the model dtype
+(``_local_dispatch``), exchanges the buckets with a tiled ``all_to_all``
+so that each device holds its E/ep experts' (E/ep, ep·C, D) inputs, runs
+its experts with f32 accumulation, sends the outputs back by the reverse
+``all_to_all`` and combines them locally. The port writes the per-device
+program once, as a generator (``_ep_member``) that yields at each
+exchange, and runs it single-controller over a ``DataMesh`` (as the
+port's data-parallel executor does): member (i, j) of the (data, model)
+mesh runs on its mesh entry (entries may repeat one card), and each
+exchange is a reshuffle of the members' buffers. The send capacity C is
+``moe_capacity`` of a member's token count, as in the reference. A
+dropped assignment writes nothing here either. Without a mesh, without a
+"model" axis or when ep does not divide E, ``dispatch="shmap"`` falls back
+to the plain path (the reference falls back to its sort dispatch).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.dist import annotate, gathered
 from repro_torch.models.lm.common import activation
 
 
@@ -72,11 +92,14 @@ class Routing(NamedTuple):
     capacity: int
 
 
-def route(cfg, p: Dict, xt: torch.Tensor) -> Routing:
-    """Top-k routing of xt (T, D) and each assignment's capacity slot."""
+def route(cfg, p: Dict, xt: torch.Tensor, cap: Optional[int] = None
+          ) -> Routing:
+    """Top-k routing of xt (T, D) and each assignment's capacity slot;
+    capacity ``moe_capacity(T)`` unless ``cap`` is given."""
     t = xt.shape[0]
     k = cfg.moe_top_k
-    cap = moe_capacity(cfg, t)
+    if cap is None:
+        cap = moe_capacity(cfg, t)
     logits = (xt @ p["router"]).float()                   # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)           # (T, k)
@@ -91,12 +114,14 @@ def route(cfg, p: Dict, xt: torch.Tensor) -> Routing:
                    capacity=cap)
 
 
-def dispatch(cfg, r: Routing, xt: torch.Tensor) -> torch.Tensor:
-    """The (E, C, D) f32 expert inputs: each kept assignment's token in its
-    slot, zeros elsewhere; a dropped assignment writes nothing."""
+def dispatch(cfg, r: Routing, xt: torch.Tensor,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (E, C, D) expert inputs in ``dtype``: each kept assignment's
+    token in its slot, zeros elsewhere; a dropped assignment writes
+    nothing."""
     buf = torch.zeros((cfg.moe_num_experts, r.capacity, xt.shape[1]),
-                      dtype=torch.float32, device=xt.device)
-    buf[r.expert[r.keep], r.slot[r.keep]] = xt[r.token[r.keep]].float()
+                      dtype=dtype, device=xt.device)
+    buf[r.expert[r.keep], r.slot[r.keep]] = xt[r.token[r.keep]].to(dtype)
     return buf
 
 
@@ -113,25 +138,154 @@ def combine(cfg, r: Routing, eout: torch.Tensor, t: int) -> torch.Tensor:
     return rows.reshape(t, k, -1).sum(dim=1)
 
 
+def routed(cfg, p: Dict, xt: torch.Tensor, cap: Optional[int] = None
+           ) -> torch.Tensor:
+    """(T, D) f32: the routed experts' part of the MoE on xt (T, D), at
+    capacity ``moe_capacity(T)`` or ``cap`` (the einsum dispatch's
+    function)."""
+    r = route(cfg, p, xt, cap)
+    buf = annotate(dispatch(cfg, r, xt), "expert", None, None)
+    h_gate = torch.bmm(buf, p["we_gate"].float())
+    h_in = torch.bmm(buf, p["we_in"].float())
+    eout = torch.bmm(activation(cfg, h_gate) * h_in, p["we_out"].float())
+    eout = annotate(eout, "expert", None, None)
+    return combine(cfg, r, eout, xt.shape[0])
+
+
 def _shared_out(cfg, p: Dict, xt: torch.Tensor) -> torch.Tensor:
     sh = activation(cfg, xt @ p["sh_gate"]) * (xt @ p["sh_in"])
     return sh @ p["sh_out"]
 
 
-def moe_forward(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) → (B, S, D): the reference's einsum dispatch."""
+def moe_forward(cfg, p: Dict, x: torch.Tensor, dispatch: str = "einsum",
+                mesh=None, stats: Optional[Dict] = None) -> torch.Tensor:
+    """x: (B, S, D) → (B, S, D): the reference's einsum dispatch, or with
+    ``dispatch="shmap"`` its expert-parallel path over ``mesh`` (default:
+    the mesh of the active ``logical_rules``). ``stats``, if given, gets the
+    shmap path's exchange figures (``_moe_forward_shmap``)."""
+    if dispatch == "shmap":
+        return _moe_forward_shmap(cfg, p, x, mesh, stats)
+    if dispatch != "einsum":
+        raise ValueError(f"unknown MoE dispatch {dispatch!r}; want "
+                         f"'einsum' or 'shmap'")
     b, s, d = x.shape
-    t = b * s
-    xt = x.reshape(t, d)
-    r = route(cfg, p, xt)
-    buf = dispatch(cfg, r, xt)
-    h_gate = torch.bmm(buf, p["we_gate"].float())
-    h_in = torch.bmm(buf, p["we_in"].float())
-    eout = torch.bmm(activation(cfg, h_gate) * h_in, p["we_out"].float())
-    out = combine(cfg, r, eout, t)
+    xt = gathered(x, 1).reshape(b * s, d)
+    out = routed(cfg, p, xt)
     if cfg.moe_num_shared:
         out = out + _shared_out(cfg, p, xt).to(out.dtype)
     return out.reshape(b, s, d).to(x.dtype)
+
+
+def _ep_member(cfg, p: Dict, xl: torch.Tensor, cap: int, ep: int, j: int,
+               record: Optional[Dict] = None):
+    """The per-device program of the expert-parallel MoE (the reference's
+    ``local_fn``), member j of the "model" axis, as a generator: it yields
+    its (E, C, D) send buffer at the first exchange and receives its
+    experts' (E/ep, ep·C, D) inputs; it yields their (E/ep, ep·C, D)
+    outputs at the second and receives its tokens' (E, C, D) outputs; it
+    returns its (B_l, S_l, D) output in x's dtype. The exchange payload is
+    in the model dtype; the expert matmuls take it exactly into f32 and
+    accumulate in f32 (the reference's ``preferred_element_type``).
+    ``record``, if given, gets the bytes of the member's two exchanged
+    buffers and its dropped assignments."""
+    bl, sl, d = xl.shape
+    el = cfg.moe_num_experts // ep
+    xt = xl.reshape(bl * sl, d)
+    r = route(cfg, p, xt, cap)
+    send = dispatch(cfg, r, xt, xl.dtype)
+    recv = yield send
+    mine = slice(j * el, (j + 1) * el)
+    hg = torch.bmm(recv.float(), p["we_gate"][mine].float())
+    hi = torch.bmm(recv.float(), p["we_in"][mine].float())
+    eo = torch.bmm((activation(cfg, hg) * hi).to(recv.dtype).float(),
+                   p["we_out"][mine].float()).to(recv.dtype)
+    back = yield eo
+    if record is not None:
+        record.update(send_bytes=send.numel() * send.element_size(),
+                      back_bytes=back.numel() * back.element_size(),
+                      dropped=int((~r.keep).sum()))
+    out = combine(cfg, r, back.float(), bl * sl)
+    return out.reshape(bl, sl, d).to(xl.dtype)
+
+
+def _moe_forward_shmap(cfg, p: Dict, x: torch.Tensor, mesh=None,
+                       stats: Optional[Dict] = None) -> torch.Tensor:
+    """The expert-parallel MoE over a ``DataMesh`` with a "model" axis (see
+    the module docstring). ``stats`` gets ``capacity``, ``ep`` and
+    ``members``, one record per member in mesh order: the bytes of the
+    buffer it sends and of the outputs it gets back (together 2·E·C·D
+    values, the reference's collective volume per device and layer) and
+    its dropped assignments."""
+    if mesh is None:
+        from repro_torch.dist import current_mesh
+        mesh = current_mesh()
+    if mesh is None or "model" not in mesh.axis_names \
+            or cfg.moe_num_experts % mesh.shape["model"] != 0:
+        return moe_forward(cfg, p, x)
+    b, s, d = x.shape
+    ep = mesh.shape["model"]
+    el = cfg.moe_num_experts // ep
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    ndp = 1
+    for a in dp:
+        ndp *= mesh.shape[a]
+    if b % ndp != 0:
+        raise ValueError(f"batch {b} does not split over the data axes "
+                         f"{dp} ({ndp} members)")
+    # per-member token count decides the SEND capacity
+    b_loc = b // ndp
+    s_loc = s // ep if s % ep == 0 else s
+    cap = moe_capacity(cfg, max(b_loc, 1) * s_loc)
+    # mesh entries by (data member, model member): the data axes flattened
+    # outermost first, any other axis at its first entry
+    names = list(mesh.axis_names)
+    grid = np.moveaxis(np.asarray(mesh.devices, dtype=object),
+                       names.index("model"), -1)
+    sel = tuple(slice(None) if a in dp else 0 for a in names
+                if a != "model")
+    grid = np.asarray(grid[sel]).reshape(ndp, ep)
+    gens, records = {}, {}
+    for i in range(ndp):
+        for j in range(ep):
+            dev = grid[i, j]
+            rows = slice(i * b_loc, (i + 1) * b_loc)
+            cols = slice(j * s_loc, (j + 1) * s_loc) if s_loc != s \
+                else slice(None)
+            pm = {k: p[k].to(dev) for k in ("router", "we_in", "we_gate",
+                                             "we_out")}
+            records[i, j] = {} if stats is not None else None
+            gens[i, j] = _ep_member(cfg, pm, x[rows, cols].to(dev), cap, ep,
+                                    j, records[i, j])
+    # first exchange (tiled all_to_all, split axis 0, concat axis 1):
+    # expert block k of member j's buffer goes to member k, concatenated
+    # over j along the capacity axis
+    sends = {m: next(g) for m, g in gens.items()}
+    recv = {(i, k): torch.cat([sends[i, j][k * el:(k + 1) * el].to(
+        grid[i, k]) for j in range(ep)], dim=1) for i, k in sends}
+    # reverse exchange (split axis 1, concat axis 0): capacity block j of
+    # member k's outputs goes back to member j, concatenated over k
+    outs = {m: gens[m].send(recv[m]) for m in gens}
+    back = {(i, j): torch.cat([outs[i, k][:, j * cap:(j + 1) * cap].to(
+        grid[i, j]) for k in range(ep)], dim=0) for i, j in outs}
+    res = {}
+    for m, g in gens.items():
+        try:
+            g.send(back[m])
+        except StopIteration as stop:
+            res[m] = stop.value
+    if s_loc != s:
+        out = torch.cat([torch.cat([res[i, j].to(x.device)
+                                    for j in range(ep)], dim=1)
+                         for i in range(ndp)], dim=0)
+    else:       # the sequence replicated over "model": member 0's copy
+        out = torch.cat([res[i, 0].to(x.device) for i in range(ndp)], dim=0)
+    if stats is not None:
+        stats.update(capacity=cap, ep=ep,
+                     members=[records[m] for m in sorted(records)])
+    if cfg.moe_num_shared:
+        xt = x.reshape(-1, d)
+        out = out + _shared_out(cfg, p, xt).reshape(b, s, d).to(out.dtype)
+    return out
 
 
 def moe_router_stats(cfg, p: Dict, x: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -22,6 +22,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import annotate
 from repro_torch.models.lm.common import f32_leaves
 
 _C = 8.0
@@ -76,6 +77,7 @@ def rglru_forward(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     main = xf @ p["w_main"].float()
     main = _causal_conv(f32_leaves(p, ("conv_w", "conv_b")), main)
     a, b = _gates(f32_leaves(p, _GATES), main)
+    a = annotate(a, "batch", "seq", None)
     h = linear_scan(a, b)
     gate = F.gelu(xf @ p["w_gate"].float(), approximate="tanh")
     out = (h * gate) @ p["w_out"].float()

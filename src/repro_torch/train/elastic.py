@@ -1,9 +1,10 @@
 """Elastic scaling + straggler mitigation over PRECOMPUTED batches.
 
 The port's copy of ``repro.train.elastic`` (pure Python and threads; the
-clock is the port's ``serve.common.SystemClock``). Nothing in the port
-calls it yet: the reference drives it from ``launch/train.py``, which is
-not ported (ROADMAP.md, Queue 1 item 13).
+clock is the port's ``serve.common.SystemClock``). Neither package drives
+it beyond its tests: the reference's ``launch/train.py`` only names it in
+its docstring, and the port's ``launch/train.py`` (its counterpart) does
+not call it.
 
 IBMB's determinism is the enabler: the epoch's work is a fixed list of batch
 IDs, so distribution questions become pure metadata:

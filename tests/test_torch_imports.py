@@ -78,7 +78,11 @@ def test_fresh_import_loads_no_jax_and_no_repro():
                 "repro_torch.dist.data_parallel",
                 "repro_torch.train.elastic", "repro_torch.core.influence",
                 "repro_torch.launch", "repro_torch.launch.train",
-                "repro_torch.optim.compression"):
+                "repro_torch.optim.compression", "repro_torch.dist.logical",
+                "repro_torch.dist.sharding", "repro_torch.launch.mesh",
+                "repro_torch.launch.dryrun",
+                "repro_torch.launch.hlo_analysis",
+                "repro_torch.launch.summarize"):
         assert mod in got["modules"]
     assert got["loaded"] == []
 
@@ -226,6 +230,35 @@ def test_every_lm_layer_type_and_frontend_is_ported():
     assert "prefix_embeds" in model.lm_forward.__code__.co_varnames
     for arch in list_archs():
         assert param_shapes(get_config(arch))
+
+
+def test_mesh_and_dryrun_are_ported():
+    from repro_torch.dist import (
+        annotate, batch_spec, cache_spec, distribute_tree, fit_spec,
+        logical_rules, logical_rules_for, opt_spec, param_spec, placements,
+        spec_for)
+    from repro_torch.launch import dryrun, hlo_analysis, mesh, summarize
+    from repro_torch.models.lm.moe import moe_forward
+    assert all(callable(f) for f in (
+        annotate, batch_spec, cache_spec, distribute_tree, fit_spec,
+        logical_rules, logical_rules_for, opt_spec, param_spec, placements,
+        spec_for, mesh.make_production_mesh, mesh.make_test_mesh,
+        mesh.data_axes, dryrun.run_cell, dryrun.run_gnn_cell, dryrun.main,
+        hlo_analysis.StepCounter, summarize.roofline_table))
+    assert "dispatch" in moe_forward.__code__.co_varnames
+    # every module of the reference has its counterpart under the same
+    # path, but the invariant analyzer and the four Pallas kernel modules
+    # (ported as kernels/csrc/*.cu)
+    def tree(pkg):
+        root = os.path.join(_ROOT, "src", pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, fs in os.walk(root) for f in fs
+                if f.endswith(".py")}
+    missing = tree("repro") - tree("repro_torch")
+    assert {m for m in missing if not m.startswith("analysis/")} == {
+        "kernels/flash_attention/flash_attention.py",
+        "kernels/gather_rows/gather_rows.py", "kernels/spmm/fused.py",
+        "kernels/spmm/spmm.py"}
 
 
 # The reference's lock-discipline rule scopes ``src/repro/serve/``,
