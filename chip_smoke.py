@@ -219,6 +219,24 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               Phases 15–22 are module functions (``lm_archs_phase`` and
               its siblings) that rehearse on the CPU with the SMOKE
               configs.
+23. mesh-card — llama3.2-1b on a world-1 (1, 1) ``DeviceMesh``: prefill,
+              decode steps and a train step bitwise the unsharded runs,
+              the flash kernel under ``local_map`` (``mesh_card_phase``).
+24. moe-mesh — deepseek-v2-lite-16b's MoE layer at full width on a (1, 1)
+              ``DeviceMesh`` through the DTensor einsum dispatch and the
+              expert-parallel path on DTensors (funcol all-to-alls inside
+              ``local_map``), each against the unsharded layer
+              (``moe_mesh_phase``).
+25. moe-ep — the same layer through ``dispatch="shmap"`` over a world-4
+              ``DataMesh`` on the card, with and without drops
+              (``moe_ep_phase``).
+26. dryrun — the CPU dry run started beside the card phases
+              (``start_dryrun``): llama3.2-1b at every shape, the GCN,
+              deepseek-v2-lite-16b's and rwkv6-3b's prefill_32k (mesh
+              single), each command's wall clock, and the SMOKE sweep of
+              the ten LM archs on a fake (4, 4) group under this
+              machine's torch (``smoke_sweep``), fatal on any cell's
+              error; then the one-card anchor (``dryrun_phase``).
 
 The second-to-last line is a JSON ``kernels`` record and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -2300,6 +2318,13 @@ MOE_DROP_CF = 0.5
 # a member's output before the shared experts are added; with the final
 # sum's own rounding, held within four bf16 roundings of the largest |out|
 MOE_BF16_ROUNDINGS = 4
+# the dry run's SMOKE sweep: every (arch, kind) cell of the ten LM archs
+# on a fake (4, 4) ("data", "model") group at B=8, S=64
+SWEEP_MESH, SWEEP_B, SWEEP_S = (4, 4), 8, 64
+SWEEP_KINDS = ("prefill", "train", "decode")
+# the production cells the background dry run adds to llama3.2-1b's and
+# the GCN's: the MoE's and RWKV6's prefill on the (16, 16) mesh
+DRYRUN_PREFILL_ARCHS = ("deepseek-v2-lite-16b", "rwkv6-3b")
 
 
 def mesh_card_phase(ctx):
@@ -2551,25 +2576,166 @@ def moe_ep_phase(ctx):
         raise AssertionError("the drop case does not hold")
 
 
-def start_dryrun(out_dir, log_path):
-    """Start the dry run's subprocesses (CPU only, one after another, at
-    low priority and one thread) while the card phases run: llama3.2-1b
-    at every shape and the GCN, mesh "single". Returns the ``Popen``; its
-    log holds each command's wall clock."""
-    cells = ((["--arch", "llama3.2-1b", "--shape", "all", "--mesh",
-               "single", "--out", out_dir], "llama3.2-1b --shape all"),
-             (["--arch", "gnn-gcn", "--mesh", "single", "--out", out_dir],
-              "gnn-gcn"))
+def moe_mesh_phase(ctx):
+    """deepseek-v2-lite-16b's MoE layer at full width (E=64, top-6, d_model
+    2048, expert width 1408, 2 shared experts, its capacity factor 1.25)
+    on a world-1 (1, 1) ``DeviceMesh`` (``nccl`` on the card, ``gloo`` on
+    the CPU), B=``ctx.moe_b``, S=``ctx.moe_s``, f32: the parameters placed
+    by ``param_spec`` under ``logical_rules``, through the DTensor einsum
+    dispatch (``moe.routed_einsum``: the (T, E, C) one-hot formulation)
+    and the expert-parallel path on DTensors (``dispatch="shmap"``:
+    ``_ep_member`` inside ``local_map``, its exchanges one-rank functional
+    all-to-alls), each held within ATOL of the largest |out| against the
+    unsharded layer (the sort path) on the same inputs; the bitwise
+    equality and the host-clock seconds printed beside. Two ranks on one
+    card cannot be checked: NCCL refuses them. The group is destroyed at
+    the end."""
+    torch = ctx.torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import (
+        distribute_tree, logical_rules, logical_rules_for, param_spec)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.lm import moe
+    from repro_torch.models.lm.common import dense_init
+
+    dist.init_process_group("nccl" if ctx.on_card else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1))
+        cfg = dataclasses.replace(ctx.config(MOE_EP_ARCH), dtype="float32")
+        gen = torch.Generator(ctx.dev).manual_seed(7)
+        p = {k: dense_init(gen, s, torch.float32)
+             for k, s in sorted(moe.moe_params_shape(cfg).items())}
+        b, s, d = ctx.moe_b, ctx.moe_s, cfg.d_model
+        x = torch.randn((b, s, d), generator=gen, device=ctx.dev)
+        want = moe.moe_forward(cfg, p, x)
+        r = moe.route(cfg, p, x.reshape(-1, d))
+        scale = want.abs().max().item()
+        print(f"{MOE_EP_ARCH} MoE layer on {mesh}: E={cfg.moe_num_experts} "
+              f"top-{cfg.moe_top_k} d_model {d} expert width "
+              f"{cfg.moe_d_ff}, B={b} S={s}, capacity C={r.capacity} "
+              f"(factor {cfg.moe_capacity_factor}), dropped "
+              f"{int((~r.keep).sum())} of {r.keep.numel()} assignments; "
+              f"unsharded max |out| {scale:.4g}", flush=True)
+        pd = distribute_tree(mesh, p, param_spec)
+        xd = distribute_tensor(x, mesh, (Replicate(), Replicate()))
+        for dispatch in ("einsum", "shmap"):
+            stats = {}
+            ctx.sync()
+            t0 = time.perf_counter()
+            with logical_rules(logical_rules_for(cfg, mesh), mesh), \
+                    implicit_replication():
+                got = moe.moe_forward(cfg, pd, xd, dispatch=dispatch,
+                                      stats=stats)
+            ctx.sync()
+            sec = time.perf_counter() - t0
+            got = got.full_tensor()
+            err = (got - want).abs().max().item()
+            ok = err <= ATOL * scale and bool(torch.isfinite(got).all())
+            extra = ""
+            if stats:
+                m = stats["members"][0]
+                extra = (f"; member capacity {stats['capacity']}, sends "
+                         f"{m['send_bytes']} B, gets back {m['back_bytes']} "
+                         f"B, dropped {m['dropped']}")
+            print(f"moe-mesh {dispatch} on DTensors: max err {err:.4g} "
+                  f"against the unsharded layer (limit {ATOL * scale:.4g}),"
+                  f" bitwise {bool(torch.equal(got, want))}; {sec:.3f} s "
+                  f"(host clock){extra}", flush=True)
+            if not ok:
+                raise AssertionError(f"the {dispatch} MoE on a (1, 1) mesh "
+                                     f"is off the unsharded layer by "
+                                     f"{err:.4g}")
+            del got
+    finally:
+        dist.destroy_process_group()
+
+
+def smoke_sweep(out_dir):
+    """Every SMOKE cell of the ten LM archs (``SWEEP_KINDS``) through
+    ``dryrun.run_cell`` on a fake ``SWEEP_MESH`` group at B=SWEEP_B,
+    S=SWEEP_S, in this process (its own fake group): one JSON a cell in
+    ``out_dir``, its per-chip counts and seconds or its error. Run as a
+    process of its own (``start_dryrun``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    os.makedirs(out_dir, exist_ok=True)
+    dryrun.fake_group(SWEEP_MESH[0] * SWEEP_MESH[1])
+    try:
+        mesh = make_test_mesh(SWEEP_MESH)
+        for arch in (a for a in ARCH_IDS if not a.startswith("gnn-")):
+            for kind in SWEEP_KINDS:
+                t0 = time.perf_counter()
+                res = {"arch": arch, "kind": kind}
+                try:
+                    cell = dryrun.run_cell(
+                        arch, kind, "smoke", verbose=False, mesh=mesh,
+                        cfg=get_smoke_config(arch),
+                        shape=ShapeSpec(kind, SWEEP_S, SWEEP_B, kind))
+                    res.update(flops=cell["hlo"]["flops"],
+                               dot_flops=cell["hlo"]["dot_flops"],
+                               collectives=cell["hlo"]["collectives"])
+                except Exception as e:  # every cell is tried; phase
+                    # dryrun fails the run on any error
+                    res.update(error=f"{type(e).__name__}: {e}",
+                               traceback=traceback.format_exc()[-3000:])
+                res["seconds"] = time.perf_counter() - t0
+                with open(os.path.join(out_dir, f"{arch}__{kind}.json"),
+                          "w") as f:
+                    json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_dryrun(out_dir, log_path, sweep_dir):
+    """Start the dry run's subprocesses (CPU only, at low priority and one
+    thread each) while the card phases run, in two chains that run side
+    by side, each one command after another: llama3.2-1b at every shape,
+    the GCN and deepseek-v2-lite-16b's prefill_32k; rwkv6-3b's
+    prefill_32k and the SMOKE sweep (``smoke_sweep`` into ``sweep_dir``).
+    Mesh "single". Returns the runner's ``Popen``; its log holds each
+    command's wall clock."""
+    dry = ["-m", "repro_torch.launch.dryrun"]
+    prefill = [(dry + ["--arch", arch, "--shape", "prefill_32k", "--mesh",
+                       "single", "--out", out_dir],
+                f"{arch} --shape prefill_32k")
+               for arch in DRYRUN_PREFILL_ARCHS]
+    chains = (
+        [(dry + ["--arch", "llama3.2-1b", "--shape", "all", "--mesh",
+                 "single", "--out", out_dir], "llama3.2-1b --shape all"),
+         (dry + ["--arch", "gnn-gcn", "--mesh", "single", "--out", out_dir],
+          "gnn-gcn"), prefill[0]],
+        [prefill[1],
+         (["-c", f"import sys; sys.path.insert(0, {ROOT!r}); import "
+                 f"chip_smoke; chip_smoke.smoke_sweep({sweep_dir!r})"],
+          "SMOKE sweep of the ten LM archs on a fake "
+          f"{SWEEP_MESH} group")])
     runner = (
-        "import subprocess, sys, time\n"
-        f"for argv, name in {cells!r}:\n"
-        "    t0 = time.perf_counter()\n"
-        "    rc = subprocess.call([sys.executable, '-m',\n"
-        "                          'repro_torch.launch.dryrun', *argv])\n"
-        "    print(f'dryrun {name}: {time.perf_counter() - t0:.1f} s wall '\n"
-        "          f'clock, exit {rc}', flush=True)\n"
-        "    if rc:\n"
-        "        sys.exit(rc)\n")
+        "import subprocess, sys, threading, time\n"
+        "failed = []\n"
+        "def chain(cmds):\n"
+        "    for argv, name in cmds:\n"
+        "        t0 = time.perf_counter()\n"
+        "        rc = subprocess.call([sys.executable, *argv])\n"
+        "        print(f'dryrun {name}: {time.perf_counter() - t0:.1f} s '\n"
+        "              f'wall clock, exit {rc}', flush=True)\n"
+        "        if rc:\n"
+        "            failed.append(name)\n"
+        "            return\n"
+        f"threads = [threading.Thread(target=chain, args=(c,)) for c in "
+        f"{chains!r}]\n"
+        "for t in threads:\n"
+        "    t.start()\n"
+        "for t in threads:\n"
+        "    t.join()\n"
+        "sys.exit(1 if failed else 0)\n")
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     log = open(log_path, "w")
     proc = subprocess.Popen(["nice", "-n", "19", sys.executable, "-c",
@@ -2636,6 +2802,31 @@ def dryrun_phase(ctx):
         [sys.executable, "-m", "repro_torch.launch.summarize", "--dir",
          ctx.dryrun_dir], capture_output=True, text=True, check=True,
         env=dict(os.environ, PYTHONPATH=SRC)).stdout, flush=True)
+    missing = {a for a in DRYRUN_PREFILL_ARCHS} - {
+        c["arch"] for c in cells if c["shape"] == "prefill_32k"}
+    if missing:
+        raise AssertionError(f"no prefill_32k cell of {sorted(missing)}")
+
+    # the SMOKE sweep under this machine's torch
+    sweep = []
+    for name in sorted(os.listdir(ctx.sweep_dir)):
+        with open(os.path.join(ctx.sweep_dir, name)) as f:
+            sweep.append(json.load(f))
+    print(f"SMOKE sweep on a fake {SWEEP_MESH} group, B={SWEEP_B} "
+          f"S={SWEEP_S}, torch {torch.__version__}:", flush=True)
+    for c in sweep:
+        what = c.get("error") or (
+            f"per chip {c['flops']:.6g} flops ({c['dot_flops']:.6g} in "
+            f"dots), collectives {c['collectives']}")
+        print(f"  {c['arch']} {c['kind']} ({c['seconds']:.1f} s): {what}",
+              flush=True)
+    failed = [c for c in sweep if "error" in c]
+    for c in failed:
+        print(c["traceback"], flush=True)
+    want = 10 * len(SWEEP_KINDS)
+    if failed or len(sweep) != want:
+        raise AssertionError(f"SMOKE sweep: {len(failed)} of {len(sweep)} "
+                             f"cells failed ({want} expected)")
 
     # the one-card anchor
     cfg = ctx.mesh_cfg
@@ -2745,7 +2936,8 @@ def main() -> None:
     atexit.register(shutil.rmtree, dry_tmp, ignore_errors=True)
     dry_dir = os.path.join(dry_tmp, "cells")
     dry_log = os.path.join(dry_tmp, "dryrun.log")
-    dry_proc = start_dryrun(dry_dir, dry_log)
+    sweep_dir = os.path.join(dry_tmp, "sweep")
+    dry_proc = start_dryrun(dry_dir, dry_log, sweep_dir)
 
     with phase("build"):
         t0 = time.perf_counter()
@@ -4087,11 +4279,16 @@ def main() -> None:
     arch_ctx.prefill_ms = prefill_ms
     arch_ctx.dryrun_proc, arch_ctx.dryrun_log, arch_ctx.dryrun_dir = \
         dry_proc, dry_log, dry_dir
+    arch_ctx.sweep_dir = sweep_dir
     arch_ctx.dryrun_timeout = 300
     with phase("mesh-card"):
         mesh_card_phase(arch_ctx)
         launches["flash_attention"] += arch_ctx.mesh_launches[
             "flash_attention"]
+
+    torch.cuda.empty_cache()
+    with phase("moe-mesh"), torch.no_grad():
+        moe_mesh_phase(arch_ctx)
 
     torch.cuda.empty_cache()
     with phase("moe-ep"), torch.no_grad():

@@ -32,7 +32,7 @@ __all__ = [
     "fit_spec", "param_spec", "opt_spec", "cache_spec", "batch_spec",
     "placements", "distribute_tree", "logical_rules_for",
     "data_axes", "is_dtensor", "splittable", "gathered", "on_grad",
-    "grad_gathered", "grad_splittable",
+    "grad_gathered", "grad_splittable", "per_rank", "summed",
 ]
 
 
@@ -79,6 +79,19 @@ def gathered(x, *dims: int):
     dims = {d % x.ndim for d in dims}
     pl = tuple(Replicate() if p.is_shard() and p.dim in dims else p
                for p in x.placements)
+    return x if pl == tuple(x.placements) else \
+        x.redistribute(x.device_mesh, pl)
+
+
+def summed(x):
+    """``x`` with its partial sums reduced: a DTensor replicated over the
+    mesh axes where it is ``Partial``; anything else as it is. For an op
+    that is not linear in x, or an add whose other operand DTensor would
+    otherwise turn partial (which torch 2.11 cannot do from a shard)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if q.is_partial() else q for q in x.placements)
     return x if pl == tuple(x.placements) else \
         x.redistribute(x.device_mesh, pl)
 
@@ -149,3 +162,30 @@ def annotate(x, *logical_axes):
     if tuple(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def per_rank(cfg, fn, args, in_axes, out_axes):
+    """``fn(*args)`` of plain tensors, on DTensors ``args``: ``local_map``
+    over their mesh, each argument placed by its logical axes ``in_axes``
+    and each of ``fn``'s outputs by one entry of ``out_axes`` (each fitted
+    to the first argument's shape: an axis the mesh does not divide stays
+    whole), so that every rank runs ``fn`` on its own shards. The gradient
+    of an argument is a partial sum over the mesh axes that split the
+    first argument but not it. The rules are those in force, else
+    ``logical_rules_for(cfg, mesh)``."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = args[0].device_mesh
+    rules = current_rules() or logical_rules_for(cfg, mesh)
+
+    def placed(shape, axes):
+        return placements(mesh, fit_spec(mesh, shape, spec_for(axes, rules)))
+    in_pl = tuple(placed(a.shape, ax) for a, ax in zip(args, in_axes))
+    grad_pl = tuple(tuple(Partial() if lead.is_shard() and not q.is_shard()
+                          else q for lead, q in zip(in_pl[0], pl))
+                    for pl in in_pl)
+    out_pl = [placed(args[0].shape, ax) for ax in out_axes]
+    return local_map(fn, out_placements=tuple(out_pl) if len(out_pl) > 1
+                     else list(out_pl[0]), in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)

@@ -136,6 +136,9 @@ def load_library(source: str) -> ctypes.CDLL:
     if lib is None:
         with _lock:
             if source not in _loaded:
+                # by design: the first caller builds while the others wait
+                # for its library instead of racing nvcc on one source
+                # lint: allow(lock-blocking)
                 _loaded[source] = ctypes.CDLL(build(source))
             lib = _loaded[source]
     return lib

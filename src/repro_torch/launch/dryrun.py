@@ -139,29 +139,32 @@ def input_specs(cfg: LMConfig, shape: ShapeSpec, mesh) -> Dict[str, Any]:
 
 
 # ------------------------------------------------------------------- step fns
-def make_train_step(cfg: LMConfig, opt):
+# ``moe_dispatch``: the MoE layers' ``dispatch`` ("einsum" or "shmap"; the
+# reference's REPRO_MOE_DISPATCH)
+def make_train_step(cfg: LMConfig, opt, moe_dispatch: str = "einsum"):
     from repro_torch.launch.train import train_step as one_step
 
     def train_step(params, opt_state, batch, lr):
-        return one_step(cfg, opt, params, opt_state, batch, lr)
+        return one_step(cfg, opt, params, opt_state, batch, lr,
+                        moe_dispatch=moe_dispatch)
     return train_step
 
 
-def make_prefill_step(cfg: LMConfig):
+def make_prefill_step(cfg: LMConfig, moe_dispatch: str = "einsum"):
     def prefill(params, batch):
         with torch.no_grad():
             h = lm_forward(cfg, params, batch["tokens"],
                            prefix_embeds=batch.get("prefix_embeds"),
-                           remat=False)
+                           remat=False, moe_dispatch=moe_dispatch)
             return head_logits(cfg, params, h[:, -1])
     return prefill
 
 
-def make_decode_step(cfg: LMConfig):
+def make_decode_step(cfg: LMConfig, moe_dispatch: str = "einsum"):
     def serve_step(params, cache, batch):
         with torch.no_grad():
             return decode_step(cfg, params, cache, batch["tokens"],
-                               batch["pos"])
+                               batch["pos"], moe_dispatch=moe_dispatch)
     return serve_step
 
 
@@ -299,11 +302,12 @@ def _gnn_model_flops(g, nb) -> float:
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
              verbose: bool = True, mesh=None, cfg: Optional[LMConfig] = None,
              shape: Optional[ShapeSpec] = None,
-             gnn_shmap: bool = False, gnn_dtype: str = "float32"
-             ) -> Dict[str, Any]:
+             gnn_shmap: bool = False, gnn_dtype: str = "float32",
+             moe_dispatch: str = "einsum") -> Dict[str, Any]:
     """One cell. ``mesh``, ``cfg`` and ``shape`` replace the production
     mesh, the arch's config and the named shape (tests; the one-card
-    anchor)."""
+    anchor). ``moe_dispatch``: the MoE layers' dispatch, "einsum" or
+    "shmap" (the reference's ``REPRO_MOE_DISPATCH``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     if arch.startswith("gnn-"):
         return run_gnn_cell(arch, mesh_kind, verbose=verbose,
@@ -330,11 +334,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                 mesh, opt.init(params_g),
                 lambda m, p, l: opt_spec(m, p, l, {}))
             del params_g
-            step = make_train_step(cfg, opt)
+            step = make_train_step(cfg, opt, moe_dispatch)
             args = (params, opt_state, batch, 1e-3)
         elif shape.kind == "prefill":
             del params_g
-            step = make_prefill_step(cfg)
+            step = make_prefill_step(cfg, moe_dispatch)
             args = (params, batch)
         else:  # decode
             del params_g
@@ -343,7 +347,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                 lambda name, s: torch.empty(s, dtype=_cache_dtype(cfg, name),
                                             device=mesh.device_type)),
                 cache_spec)
-            step = make_decode_step(cfg)
+            step = make_decode_step(cfg, moe_dispatch)
             args = (params, cache, batch)
         t_lower = time.time() - t0
     arg_bytes = local_bytes(args)
@@ -435,6 +439,11 @@ def main(argv=None):
                          "REPRO_GNN_SHMAP=1)")
     ap.add_argument("--gnn-dtype", default="float32",
                     help="GNN cells' dtype (the reference's REPRO_GNN_DTYPE)")
+    ap.add_argument("--moe-dispatch", default="einsum",
+                    choices=["einsum", "shmap"],
+                    help="MoE layers: the one-hot einsum dispatch, or the "
+                         "expert-parallel exchange inside local_map (the "
+                         "reference's REPRO_MOE_DISPATCH)")
     args = ap.parse_args(argv)
 
     archs = ARCH_IDS if args.arch == "all" else [args.arch]
@@ -455,7 +464,8 @@ def main(argv=None):
                 try:
                     res = run_cell(arch, shape, mesh_kind, verbose=False,
                                    gnn_shmap=args.gnn_shmap,
-                                   gnn_dtype=args.gnn_dtype)
+                                   gnn_dtype=args.gnn_dtype,
+                                   moe_dispatch=args.moe_dispatch)
                 except Exception as e:  # record failures — they are bugs
                     import traceback
                     res = {"arch": arch, "shape": shape, "mesh": mesh_kind,

@@ -58,12 +58,12 @@ def synthetic_batch(cfg, batch: int, seq: int, step: int,
     return out
 
 
-def grads_only(cfg, params, batch: Dict[str, torch.Tensor]
-               ) -> Tuple[Any, torch.Tensor]:
+def grads_only(cfg, params, batch: Dict[str, torch.Tensor],
+               moe_dispatch: str = "einsum") -> Tuple[Any, torch.Tensor]:
     """(gradient tree, loss) of ``lm_loss`` with remat at ``params``; each
     gradient in its parameter's dtype."""
     p = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss = lm_loss(cfg, p, batch, remat=True)
+    loss = lm_loss(cfg, p, batch, remat=True, moe_dispatch=moe_dispatch)
     grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
     return tree_map(lambda _: next(grads), params), loss.detach()
 
@@ -117,9 +117,10 @@ def apply_grads(opt: Optimizer, params, opt_state, grads, lr: float):
 
 
 def train_step(cfg, opt: Optimizer, params, opt_state,
-               batch: Dict[str, torch.Tensor], lr: float):
+               batch: Dict[str, torch.Tensor], lr: float,
+               moe_dispatch: str = "einsum"):
     """One step: (params, opt_state, loss); the inputs are consumed."""
-    grads, loss = grads_only(cfg, params, batch)
+    grads, loss = grads_only(cfg, params, batch, moe_dispatch)
     params, opt_state = apply_grads(opt, params, opt_state, grads, lr)
     return params, opt_state, loss
 

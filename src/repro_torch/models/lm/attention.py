@@ -41,13 +41,14 @@ the port of ``repro.models.lm.attention``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.dist import (
-    annotate, grad_gathered, grad_splittable, is_dtensor, on_grad,
-    splittable)
+    annotate, gathered, grad_gathered, grad_splittable, is_dtensor, on_grad,
+    per_rank, splittable)
 from repro_torch.kernels.flash_attention import chunked_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF, pick_chunk
@@ -169,22 +170,12 @@ def kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, hl: int,
 
 def _attend_on_mesh(cfg, q, k, v, attend: Callable):
     """``attend(q, k, v)`` of plain tensors, on DTensors q (B, S, H, hd) and
-    k/v (B, S, KV, hd): ``local_map`` over the mesh with batch on the data
-    axes and heads on "model" where it divides them (the reference's q/k/out
+    k/v (B, S, KV, hd), per rank (``per_rank``): batch on the data axes and
+    heads on "model" where it divides them (the reference's q/k/out
     annotations), each rank attending with its own heads; where the kv
-    heads stay whole, each rank's query heads read theirs."""
-    from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
-
-    from repro_torch.dist import (
-        current_rules, fit_spec, logical_rules_for, placements, spec_for)
+    heads stay whole, each rank's query heads read theirs (and the kv
+    gradient is each rank's heads' share, a partial sum)."""
     mesh = q.device_mesh
-    rules = current_rules() or logical_rules_for(cfg, mesh)
-
-    def placed(t, heads):
-        return placements(mesh, fit_spec(mesh, t.shape, spec_for(
-            ("batch", None, heads, None), rules)))
-    q_pl, kv_pl = placed(q, "heads"), placed(k, "kv_heads")
     h, kv = cfg.num_heads, cfg.num_kv_heads
 
     def local(ql, kl, vl):
@@ -199,14 +190,10 @@ def _attend_on_mesh(cfg, q, k, v, attend: Callable):
             h0 = mesh.get_local_rank("model") * hl
             kl, vl = kv_for_heads(kl, vl, h0, hl, h // kv)
         return attend(ql, kl, vl)
-    # k/v replicated over an axis that splits the query heads: each rank's
-    # gradient is its heads' share of theirs, a partial sum over that axis
-    kv_grad = tuple(Partial() if qp.is_shard() and not kp.is_shard() else kp
-                    for qp, kp in zip(q_pl, kv_pl))
-    return local_map(local, out_placements=list(q_pl),
-                     in_placements=(q_pl, kv_pl, kv_pl),
-                     in_grad_placements=(q_pl, kv_grad, kv_grad),
-                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+    q_axes = ("batch", None, "heads", None)
+    kv_axes = ("batch", None, "kv_heads", None)
+    return per_rank(cfg, local, (q, k, v), (q_axes, kv_axes, kv_axes),
+                    (q_axes,))
 
 
 # ------------------------------------------------------------------- GQA mixer
@@ -298,17 +285,34 @@ def gqa_decode(cfg, p: Dict, x: torch.Tensor, cache: Dict, pos: int,
             (abs_pos <= pos)
     else:
         valid = idx <= pos
+
+    def attend(q, k, v):
+        return _decode_attend(cfg, valid, q, k, v)
+    # on a mesh each rank attends with its own (batch, heads): the (B, KV)
+    # batch of the products would merge two sharded dimensions
+    out = _attend_on_mesh(cfg, q, ck_a, cv_a, attend) if is_dtensor(q) \
+        else attend(q, ck_a, cv_a)
+    out = out.reshape(b, 1, h * hd).to(x.dtype)
+    return out @ p["wo"], {"k": ck, "v": cv}
+
+
+def _decode_attend(cfg, valid: torch.Tensor, q: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One query position against a cache: q (B, 1, H, hd), k/v (B,
+    S_max, KV, hd) with H a multiple of KV, ``valid`` (S_max,) the slots
+    it sees → (B, 1, H, hd) f32."""
+    b, _, h, hd = q.shape
+    kv = k.shape[2]
     qg = splittable(q, 2, kv).reshape(b, 1, kv, h // kv, hd).permute(
         0, 2, 3, 1, 4)
-    s_ = torch.einsum("bkgqd,bskd->bkgqs", qg.float(), ck_a.float()) * \
+    s_ = torch.einsum("bkgqd,bskd->bkgqs", qg.float(), k.float()) * \
         (hd ** -0.5)
     if cfg.logit_softcap > 0:
         s_ = cfg.logit_softcap * torch.tanh(s_ / cfg.logit_softcap)
     s_ = torch.where(valid, s_, NEG_INF)
     pr = torch.softmax(s_, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bkgqd", pr, cv_a.float())
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h * hd).to(x.dtype)
-    return out @ p["wo"], {"k": ck, "v": cv}
+    out = torch.einsum("bkgqs,bskd->bkgqd", pr, v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
 
 
 def gqa_cache_shape(cfg, batch: int, s_max: int, window: int = 0):
@@ -344,10 +348,13 @@ def _mla_q(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor):
     h = cfg.num_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if cfg.q_lora_rank:
-        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+        # the LoRA's gradient gathered over the sequence before its matmul
+        # flattens (B, S) (a DTensor; XLA reshards by itself)
+        q = rms_norm(grad_gathered(x @ p["wq_a"], 1), p["q_norm"],
+                     cfg.norm_eps) @ p["wq_b"]
     else:
         q = x @ p["wq"]
-    q = q.reshape(b, s, h, dn + dr)
+    q = splittable(q, -1, h).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -360,6 +367,39 @@ def _mla_kv_a(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor):
     c_kv = rms_norm(kv_a[..., :r_kv], p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(kv_a[..., None, r_kv:], positions, cfg.rope_theta)
     return c_kv, k_rope
+
+
+def _mla_attend(chunk_k: int, qn, qr, c_kv, k_rope, wk_b, wv_b
+                ) -> torch.Tensor:
+    """MLA's causal attention over KV chunks, K/V expanded per chunk in f32:
+    qn/qr (B, H, S, dn/dr) f32, c_kv (B, S, r_kv), k_rope (B, S, 1, dr),
+    wk_b/wv_b (r_kv, H, dn/dv) f32 → (B, H, S, dv) f32."""
+    b, h, s, dn = qn.shape
+    dr, dv = qr.shape[-1], wv_b.shape[-1]
+    dev = qn.device
+    ck = pick_chunk(s, chunk_k)
+    scale = (dn + dr) ** -0.5
+    q_pos = torch.arange(s, device=dev)
+    m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, s, dv), dtype=torch.float32, device=dev)
+    for c0 in range(0, s, ck):
+        cc = c_kv[:, c0:c0 + ck].float()
+        rc = k_rope[:, c0:c0 + ck, 0].float()
+        k_nope = torch.einsum("bcr,rhd->bhcd", cc, wk_b)
+        v_full = torch.einsum("bcr,rhd->bhcd", cc, wv_b)
+        s_ = (torch.einsum("bhqd,bhcd->bhqc", qn, k_nope) +
+              torch.einsum("bhqd,bcd->bhqc", qr, rc)) * scale
+        k_pos = torch.arange(c0, c0 + ck, device=dev)
+        s_ = torch.where(k_pos[None, :] <= q_pos[:, None], s_, NEG_INF)
+        m_cur = torch.maximum(m, s_.amax(dim=-1))
+        pr = torch.exp(s_ - m_cur[..., None])
+        alpha = torch.exp(m - m_cur)
+        l = l * alpha + pr.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqc,bhcd->bhqd", pr,
+                                                    v_full)
+        m = m_cur
+    return acc / torch.clamp(l, min=1e-30)[..., None]          # (B,H,S,dv)
 
 
 def mla_forward(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -378,34 +418,26 @@ def mla_forward(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
     q = annotate(torch.cat([q_nope, q_rope], dim=-1), "batch", "seq",
                  "heads", None).transpose(1, 2)            # (B,H,S,dn+dr)
     qn, qr = q[..., :dn].float(), q[..., dn:].float()
-    ck = pick_chunk(s, chunk_k)
-    scale = (dn + dr) ** -0.5
-    q_pos = torch.arange(s, device=x.device)
-    wk_b = p["wk_b"].reshape(r_kv, h, dn).float()
-    wv_b = p["wv_b"].reshape(r_kv, h, dv).float()
-    m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=x.device)
-    l = torch.zeros((b, h, s), dtype=torch.float32, device=x.device)
-    acc = torch.zeros((b, h, s, dv), dtype=torch.float32, device=x.device)
-    for c0 in range(0, s, ck):
-        cc = c_kv[:, c0:c0 + ck].float()
-        rc = k_rope[:, c0:c0 + ck, 0].float()
-        k_nope = torch.einsum("bcr,rhd->bhcd", cc, wk_b)
-        v_full = torch.einsum("bcr,rhd->bhcd", cc, wv_b)
-        s_ = (torch.einsum("bhqd,bhcd->bhqc", qn, k_nope) +
-              torch.einsum("bhqd,bcd->bhqc", qr, rc)) * scale
-        k_pos = torch.arange(c0, c0 + ck, device=x.device)
-        s_ = torch.where(k_pos[None, :] <= q_pos[:, None], s_, NEG_INF)
-        m_cur = torch.maximum(m, s_.amax(dim=-1))
-        pr = torch.exp(s_ - m_cur[..., None])
-        alpha = torch.exp(m - m_cur)
-        l = l * alpha + pr.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhqc,bhcd->bhqd", pr,
-                                                    v_full)
-        m = m_cur
-    out = acc / torch.clamp(l, min=1e-30)[..., None]          # (B,H,S,dv)
-    out = out.transpose(1, 2).reshape(b, s, h * dv).to(x.dtype)
+    wk_b = splittable(p["wk_b"], -1, h).reshape(r_kv, h, dn).float()
+    wv_b = splittable(p["wv_b"], -1, h).reshape(r_kv, h, dv).float()
+    args = (qn, qr, c_kv, k_rope, wk_b, wv_b)
+    if is_dtensor(qn):
+        # each rank attends with its own heads over the whole compressed
+        # cache: the (B, H) batch of the products would merge two sharded
+        # dimensions
+        heads = ("batch", "heads", None, None)
+        out = per_rank(cfg, functools.partial(_mla_attend, chunk_k), args,
+                       (heads, heads, ("batch", None, None),
+                        ("batch", None, None, None), (None, "heads", None),
+                        (None, "heads", None)), (heads,))
+    else:
+        out = _mla_attend(chunk_k, *args)
+    out = grad_splittable(out.transpose(1, 2).reshape(b, s, h * dv), 2,
+                          h).to(x.dtype)
     out = annotate(out, "batch", "seq", None)
-    return grad_gathered(out @ p["wo"], 1)
+    # not in the reference: the sequence gathered again before wo, whose
+    # matmul flattens (B, S) (XLA reshards by itself)
+    return grad_gathered(gathered(out, 1) @ p["wo"], 1)
 
 
 def mla_decode(cfg, p: Dict, x: torch.Tensor, cache: Dict, pos: int
@@ -426,8 +458,8 @@ def mla_decode(cfg, p: Dict, x: torch.Tensor, cache: Dict, pos: int
     cr[:, slot] = kr_new[:, 0, 0].to(cr.dtype)
 
     q_nope, q_rope = _mla_q(cfg, p, x, positions)        # (B,1,H,dn/dr)
-    wk_b = p["wk_b"].reshape(r_kv, h, dn).float()
-    wv_b = p["wv_b"].reshape(r_kv, h, dv).float()
+    wk_b = splittable(p["wk_b"], -1, h).reshape(r_kv, h, dn).float()
+    wv_b = splittable(p["wv_b"], -1, h).reshape(r_kv, h, dv).float()
     q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wk_b)
     cc_a = annotate(cc, "batch", "cache_seq", None)
     cr_a = annotate(cr, "batch", "cache_seq", None)

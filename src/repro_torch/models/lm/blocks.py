@@ -14,7 +14,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.dist import annotate, grad_gathered
+from repro_torch.dist import annotate, grad_gathered, summed
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import moe as moe_mod
 from repro_torch.models.lm import rglru as rglru_mod
@@ -77,8 +77,10 @@ def ffn_forward(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_forward(cfg, spec: LayerSpec, p: Dict, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence layer. x: (B, S, D)."""
+                  positions: torch.Tensor, moe_dispatch: str = "einsum"
+                  ) -> torch.Tensor:
+    """Full-sequence layer. x: (B, S, D). ``moe_dispatch``: an MoE FFN's
+    ``dispatch`` (``moe_forward``)."""
     h = apply_norm(cfg, x, p["norm1"])
     if spec.mixer == "gqa":
         mix = attn.gqa_forward(cfg, p["mixer"], h, positions)
@@ -98,7 +100,7 @@ def layer_forward(cfg, spec: LayerSpec, p: Dict, x: torch.Tensor,
     if spec.ffn == "dense":
         x = x + ffn_forward(cfg, p["ffn"], h)
     elif spec.ffn == "moe":
-        x = x + moe_mod.moe_forward(cfg, p["ffn"], h)
+        x = x + moe_mod.moe_forward(cfg, p["ffn"], h, dispatch=moe_dispatch)
     elif spec.ffn == "rwkv_cmix":
         out, _ = rwkv_mod.rwkv_channel_mix(cfg, p["mixer"], h)
         x = x + out
@@ -128,7 +130,8 @@ def _cache_dtype(cfg, name: str) -> torch.dtype:
 
 
 def layer_decode(cfg, spec: LayerSpec, p: Dict, x: torch.Tensor,
-                 cache: Dict, pos: int) -> Tuple[torch.Tensor, Dict]:
+                 cache: Dict, pos: int, moe_dispatch: str = "einsum"
+                 ) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode. x: (B, 1, D); ``cache`` is written in place."""
     h = apply_norm(cfg, x, p["norm1"])
     if spec.mixer == "gqa":
@@ -146,6 +149,8 @@ def layer_decode(cfg, spec: LayerSpec, p: Dict, x: torch.Tensor,
                                          state=cache)
         cache["wkv"].copy_(st["wkv"])
         cache["shift_t"].copy_(st["shift_t"])
+        # as the channel mix's below
+        mix = summed(mix)
     else:
         raise ValueError(spec.mixer)
     x = x + mix
@@ -153,12 +158,16 @@ def layer_decode(cfg, spec: LayerSpec, p: Dict, x: torch.Tensor,
     if spec.ffn == "dense":
         x = x + ffn_forward(cfg, p["ffn"], h)
     elif spec.ffn == "moe":
-        x = x + moe_mod.moe_forward(cfg, p["ffn"], h)
+        x = x + moe_mod.moe_forward(cfg, p["ffn"], h, dispatch=moe_dispatch)
     elif spec.ffn == "rwkv_cmix":
         out, shift_c = rwkv_mod.rwkv_channel_mix(cfg, p["mixer"], h,
                                                  state=cache["shift_c"])
         cache["shift_c"].copy_(shift_c)
-        x = x + out
+        # not in the reference: the row-parallel output's partial sum
+        # resolved before the add, so that x never holds one (for a batch
+        # of one, torch 2.11 would otherwise make a sharded x partial,
+        # which it cannot)
+        x = x + summed(out)
     else:
         raise ValueError(spec.ffn)
     # not in the reference: a DTensor carries its placements from op to op

@@ -22,7 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceSpec, resolve_device
-from repro_torch.dist import annotate, is_dtensor
+from repro_torch.dist import annotate, grad_gathered, is_dtensor, splittable
 from repro_torch.kernels.flash_attention.ref import pick_chunk
 from repro_torch.models.lm.blocks import (
     _cache_dtype, _norm_shape, layer_cache_shape, layer_decode,
@@ -169,7 +169,8 @@ def head_logits(cfg: LMConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------- forward
 def _run_stages(cfg: LMConfig, params, h: torch.Tensor,
-                positions: torch.Tensor, remat: bool = True) -> torch.Tensor:
+                positions: torch.Tensor, remat: bool = True,
+                moe_dispatch: str = "einsum") -> torch.Tensor:
     """Every stage's layers, one repeat at a time. ``remat``: checkpoint
     each repeat (the reference's ``jax.checkpoint`` of its scan body) when
     autograd records; under ``torch.no_grad()`` nothing is checkpointed."""
@@ -181,7 +182,7 @@ def _run_stages(cfg: LMConfig, params, h: torch.Tensor,
             def body(x, layer_p=layer_p, st=st):
                 for i, spec in enumerate(st.layers):
                     x = layer_forward(cfg, spec, layer_p[f"layer{i}"], x,
-                                      positions)
+                                      positions, moe_dispatch)
                 return x
             h = checkpoint(body, h, use_reentrant=False) if remat \
                 else body(h)
@@ -190,18 +191,22 @@ def _run_stages(cfg: LMConfig, params, h: torch.Tensor,
 
 def lm_forward(cfg: LMConfig, params, tokens: torch.Tensor,
                prefix_embeds: Optional[torch.Tensor] = None,
-               remat: bool = True) -> torch.Tensor:
+               remat: bool = True, moe_dispatch: str = "einsum"
+               ) -> torch.Tensor:
     """Returns final hidden states (B, P + S, D), P the rows of
     ``prefix_embeds`` (B, P, D) (a VLM's precomputed patch embeddings,
     put before the text). On a CUDA tensor each GQA or local attention
     layer launches the flash kernel once, and once more in the backward
-    pass when ``remat`` recomputes its repeat."""
+    pass when ``remat`` recomputes its repeat. ``moe_dispatch``: each MoE
+    layer's ``dispatch`` (``moe_forward``; the reference's
+    ``REPRO_MOE_DISPATCH``)."""
     h = embed_tokens(cfg, params, tokens)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     h = annotate(h, "batch", "seq", "embed")
     positions = torch.arange(h.shape[1], device=h.device)
-    h = _run_stages(cfg, params, h, positions, remat=remat)
+    h = _run_stages(cfg, params, h, positions, remat=remat,
+                    moe_dispatch=moe_dispatch)
     return apply_norm(cfg, h, params["final_norm"])
 
 
@@ -213,7 +218,8 @@ def _xent_chunk(cfg: LMConfig, params, h_chunk: torch.Tensor,
     logits = head_logits(cfg, params, h_chunk).float()
     if cfg.num_codebooks > 1:
         b, s, _ = logits.shape
-        logits = logits.reshape(b, s, cfg.num_codebooks, cfg.vocab_size)
+        logits = splittable(logits, -1, cfg.num_codebooks).reshape(
+            b, s, cfg.num_codebooks, cfg.vocab_size)
     else:
         logits = annotate(logits, "batch", "seq", "vocab")
     last = logits.ndim - 1      # from the front, as common.rms_norm says
@@ -248,7 +254,8 @@ def chunked_xent(cfg: LMConfig, params, h: torch.Tensor,
 
 
 def lm_loss(cfg: LMConfig, params, batch: Dict[str, torch.Tensor],
-            remat: bool = True) -> torch.Tensor:
+            remat: bool = True, moe_dispatch: str = "einsum"
+            ) -> torch.Tensor:
     """batch: tokens (B, S[, K]) int, loss_mask (B, S) float, optional
     prefix_embeds (B, P, D). Next-token LM loss (position t predicts token
     t + 1) over the text; with ``cfg.mtp_depth`` > 0 plus 0.3 x the MTP
@@ -257,7 +264,8 @@ def lm_loss(cfg: LMConfig, params, batch: Dict[str, torch.Tensor],
     head)."""
     tokens = batch["tokens"]
     prefix = batch.get("prefix_embeds")
-    h = lm_forward(cfg, params, tokens, prefix_embeds=prefix, remat=remat)
+    h = lm_forward(cfg, params, tokens, prefix_embeds=prefix, remat=remat,
+                   moe_dispatch=moe_dispatch)
     p_len = 0 if prefix is None else prefix.shape[1]
     h_in = h[:, p_len:][:, :-1]
     labels = tokens[:, 1:]
@@ -268,10 +276,13 @@ def lm_loss(cfg: LMConfig, params, batch: Dict[str, torch.Tensor],
         emb_next = embed_tokens(cfg, params, tokens[:, 1:])
         h_n = apply_norm(cfg, h_in, mtp["norm_h"])
         e_n = apply_norm(cfg, emb_next, mtp["norm_e"])
-        h2 = torch.cat([h_n, e_n], dim=-1) @ mtp["proj"]
+        # its gradient gathered over the sequence before the matmul
+        # flattens (B, S) (a DTensor; XLA reshards by itself)
+        h2 = grad_gathered(torch.cat([h_n, e_n], dim=-1) @ mtp["proj"], 1)
         spec = cfg.stages[-1].layers[-1]
         h2 = layer_forward(cfg, spec, mtp["layer"], h2,
-                           torch.arange(h2.shape[1], device=h2.device))
+                           torch.arange(h2.shape[1], device=h2.device),
+                           moe_dispatch)
         h2 = apply_norm(cfg, h2, params["final_norm"])
         loss = loss + 0.3 * chunked_xent(
             cfg, params, h2[:, :-1], tokens[:, 2:],
@@ -301,7 +312,8 @@ def init_cache(cfg: LMConfig, batch: int, s_max: int,
 
 
 def decode_step(cfg: LMConfig, params, cache, tokens: torch.Tensor,
-                pos: int) -> Tuple[torch.Tensor, Any]:
+                pos: int, moe_dispatch: str = "einsum"
+                ) -> Tuple[torch.Tensor, Any]:
     """One decode step. tokens (B, 1) int, or (B, 1, K) for a K-codebook
     model; pos: absolute position of this token. Returns (logits (B, 1, V)
     or (B, 1, K·V), cache); the cache is written in place and returned as
@@ -315,6 +327,7 @@ def decode_step(cfg: LMConfig, params, cache, tokens: torch.Tensor,
             for i, spec in enumerate(st.layers):
                 h, _ = layer_decode(cfg, spec,
                                     _at(st_params[f"layer{i}"], r), h,
-                                    _at(st_cache[f"layer{i}"], r), pos)
+                                    _at(st_cache[f"layer{i}"], r), pos,
+                                    moe_dispatch)
     h = apply_norm(cfg, h, params["final_norm"])
     return head_logits(cfg, params, h), cache

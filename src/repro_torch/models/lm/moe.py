@@ -19,7 +19,15 @@ back to its (token, rank) row of a (T, k, D) buffer that is summed over k
 built (at T = 4096 one would be 0.5 GB). The sum over k runs in rank
 order, not through atomic adds (``index_add_`` on the card), so a token's
 output does not depend on the other tokens of the batch: a request gets
-the same tokens served alone or beside others.
+the same tokens served alone or beside others. Every assignment is
+written, a dropped one to a spare slot past C, so that no shape depends
+on the data (a dry run's fake tensors have no values).
+
+On DTensors (a ``DeviceMesh`` under ``logical_rules``) the port builds the
+reference's own one-hot formulation instead (``routed_einsum``): DTensor
+has no sharding strategy for ``argsort`` or ``searchsorted``, and the
+einsums keep the reference's global capacity and token order on any
+mesh, at its O(T·E·C·D) dispatch and combine cost.
 
 Unlike the reference's ``_moe_forward_sort`` (``REPRO_MOE_DISPATCH=sort``),
 a dropped assignment writes nothing: the reference sends it to (expert 0,
@@ -40,11 +48,14 @@ program once, as a generator (``_ep_member``) that yields at each
 exchange, and runs it single-controller over a ``DataMesh`` (as the
 port's data-parallel executor does): member (i, j) of the (data, model)
 mesh runs on its mesh entry (entries may repeat one card), and each
-exchange is a reshuffle of the members' buffers. The send capacity C is
+exchange is a reshuffle of the members' buffers. On DTensors over a
+``DeviceMesh`` the same generator runs on every rank inside ``local_map``,
+each exchange a functional all-to-all over the "model" axis's group
+(``_moe_forward_funcol``; a (1, 1) mesh included). The send capacity C is
 ``moe_capacity`` of a member's token count, as in the reference. A
 dropped assignment writes nothing here either. Without a mesh, without a
 "model" axis or when ep does not divide E, ``dispatch="shmap"`` falls back
-to the plain path (the reference falls back to its sort dispatch).
+to the einsum dispatch (the reference falls back to its sort dispatch).
 """
 from __future__ import annotations
 
@@ -54,7 +65,8 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.dist import annotate, gathered
+from repro_torch.dist import annotate, gathered, grad_gathered, is_dtensor, \
+    summed
 from repro_torch.models.lm.common import activation
 
 
@@ -119,10 +131,14 @@ def dispatch(cfg, r: Routing, xt: torch.Tensor,
     """The (E, C, D) expert inputs in ``dtype``: each kept assignment's
     token in its slot, zeros elsewhere; a dropped assignment writes
     nothing."""
-    buf = torch.zeros((cfg.moe_num_experts, r.capacity, xt.shape[1]),
+    # shapes that do not depend on the data (a dry run's fake tensors have
+    # no values): every assignment is written, a dropped one to a spare
+    # slot C that is cut off
+    buf = torch.zeros((cfg.moe_num_experts, r.capacity + 1, xt.shape[1]),
                       dtype=dtype, device=xt.device)
-    buf[r.expert[r.keep], r.slot[r.keep]] = xt[r.token[r.keep]].to(dtype)
-    return buf
+    slot = torch.where(r.keep, r.slot, r.capacity)
+    buf[r.expert, slot] = xt[r.token].to(dtype)
+    return buf[:, :r.capacity]
 
 
 def combine(cfg, r: Routing, eout: torch.Tensor, t: int) -> torch.Tensor:
@@ -131,10 +147,12 @@ def combine(cfg, r: Routing, eout: torch.Tensor, t: int) -> torch.Tensor:
     k = cfg.moe_top_k
     rows = torch.zeros((t * k, eout.shape[-1]), dtype=torch.float32,
                        device=eout.device)
-    # the flat token-major index t·k + rank of each sorted assignment
+    # the flat token-major index t·k + rank of each sorted assignment (a
+    # permutation); a dropped assignment's row stays 0
     flat = r.token * k + r.rank
-    rows[flat[r.keep]] = eout[r.expert[r.keep], r.slot[r.keep]] * \
-        r.gate[r.keep][:, None]
+    slot = torch.where(r.keep, r.slot, 0)
+    rows[flat] = torch.where(r.keep[:, None],
+                             eout[r.expert, slot] * r.gate[:, None], 0.0)
     return rows.reshape(t, k, -1).sum(dim=1)
 
 
@@ -150,6 +168,55 @@ def routed(cfg, p: Dict, xt: torch.Tensor, cap: Optional[int] = None
     eout = torch.bmm(activation(cfg, h_gate) * h_in, p["we_out"].float())
     eout = annotate(eout, "expert", None, None)
     return combine(cfg, r, eout, xt.shape[0])
+
+
+def _replicated_arange(n: int, like: torch.Tensor) -> torch.Tensor:
+    """``arange(n)`` as a DTensor replicated on ``like``'s mesh."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(torch.arange(n, device=like.to_local().device),
+                              mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def routed_einsum(cfg, p: Dict, xt: torch.Tensor) -> torch.Tensor:
+    """(T, D) f32: ``routed`` as the reference's ``_moe_forward_einsum``
+    writes it, for DTensors: one-hot masks by comparison with an arange,
+    capacity slots by a cumsum over the token-major order, and the (T, E,
+    C) dispatch and combine tensors contracted by einsums, each an op
+    DTensor has a sharding strategy for (the sort path's ``argsort`` and
+    ``searchsorted`` have none). It keeps the global semantics: C =
+    ``moe_capacity(T)`` over all T tokens and slots in global token order,
+    whatever the mesh. Its dispatch and combine cost O(T·E·C·D) flops, as
+    the reference's HLO does."""
+    t = xt.shape[0]
+    e, k = cfg.moe_num_experts, cfg.moe_top_k
+    cap = moe_capacity(cfg, t)
+    logits = (xt @ p["router"]).float()                   # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, k, dim=-1)           # (T, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    onehot = (top_e[..., None] == _replicated_arange(e, xt)).float()
+    per_e = onehot.sum(1)                                 # (T, E)
+    pos_in_e = torch.cumsum(per_e, dim=0) - per_e
+    pos = torch.einsum("tke,te->tk", onehot, pos_in_e)    # (T, k)
+    keep = pos < cap
+    gate = top_p * keep
+    pos_oh = (pos[..., None] == _replicated_arange(cap, xt)).float()
+    # the experts' sharding, which XLA carries back from ``xin``'s
+    disp = annotate(torch.einsum("tke,tkc->tec", onehot * keep[..., None],
+                                 pos_oh), "batch", "expert", None)
+    comb = annotate(torch.einsum("tke,tkc,tk->tec", onehot, pos_oh, gate),
+                    "batch", "expert", None)
+    xin = annotate(torch.einsum("tec,td->ecd", disp, xt.float()),
+                   "expert", None, None)
+    h_gate = torch.bmm(xin, p["we_gate"].float())
+    h_in = torch.bmm(xin, p["we_in"].float())
+    eout = torch.bmm(activation(cfg, h_gate) * h_in, p["we_out"].float())
+    eout = annotate(eout, "expert", None, None)
+    # as one (T, E·C) @ (E·C, D) product: the experts' shards lead each
+    # merged (E, C), which an einsum may order (C, E)
+    return comb.reshape(t, e * cap) @ eout.reshape(e * cap, -1)
 
 
 def _shared_out(cfg, p: Dict, xt: torch.Tensor) -> torch.Tensor:
@@ -170,35 +237,59 @@ def moe_forward(cfg, p: Dict, x: torch.Tensor, dispatch: str = "einsum",
                          f"'einsum' or 'shmap'")
     b, s, d = x.shape
     xt = gathered(x, 1).reshape(b * s, d)
-    out = routed(cfg, p, xt)
+    if is_dtensor(xt):
+        # the routing's softmax and top-k are not linear in a partial x
+        # (the MTP head's residual)
+        xt = summed(xt)
+        out = routed_einsum(cfg, p, xt)
+    else:
+        out = routed(cfg, p, xt)
     if cfg.moe_num_shared:
         out = out + _shared_out(cfg, p, xt).to(out.dtype)
-    return out.reshape(b, s, d).to(x.dtype)
+    # the output's gradient gathered over the sequence before the reshape
+    # flattens (B, S) (a DTensor; XLA reshards by itself)
+    return grad_gathered(out.reshape(b, s, d), 1).to(x.dtype)
 
 
-def _ep_member(cfg, p: Dict, xl: torch.Tensor, cap: int, ep: int, j: int,
+def _ep_layout(cfg, b: int, s: int, sizes: Dict[str, int]):
+    """(ep, the data axes, their member count, each member's sequence
+    length, the send capacity) of an expert-parallel MoE over a mesh of
+    axis ``sizes``: batch over the data axes, the sequence over "model"
+    where it divides, C = ``moe_capacity`` of a member's tokens."""
+    ep = sizes["model"]
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    ndp = 1
+    for a in dp:
+        ndp *= sizes[a]
+    if b % ndp != 0:
+        raise ValueError(f"batch {b} does not split over the data axes "
+                         f"{dp} ({ndp} members)")
+    s_loc = s // ep if s % ep == 0 else s
+    return ep, dp, ndp, s_loc, moe_capacity(cfg, max(b // ndp, 1) * s_loc)
+
+
+def _ep_member(cfg, p: Dict, xl: torch.Tensor, cap: int,
                record: Optional[Dict] = None):
     """The per-device program of the expert-parallel MoE (the reference's
-    ``local_fn``), member j of the "model" axis, as a generator: it yields
-    its (E, C, D) send buffer at the first exchange and receives its
-    experts' (E/ep, ep·C, D) inputs; it yields their (E/ep, ep·C, D)
-    outputs at the second and receives its tokens' (E, C, D) outputs; it
-    returns its (B_l, S_l, D) output in x's dtype. The exchange payload is
-    in the model dtype; the expert matmuls take it exactly into f32 and
-    accumulate in f32 (the reference's ``preferred_element_type``).
-    ``record``, if given, gets the bytes of the member's two exchanged
-    buffers and its dropped assignments."""
+    ``local_fn``) of a member of the "model" axis whose experts' weights
+    ``p["we_*"]`` (E/ep, ...) holds, beside the whole router, as a
+    generator: it yields its (E, C, D) send buffer at the first exchange
+    and receives its experts' (E/ep, ep·C, D) inputs; it yields their
+    (E/ep, ep·C, D) outputs at the second and receives its tokens' (E, C,
+    D) outputs; it returns its (B_l, S_l, D) output in x's dtype. The
+    exchange payload is in the model dtype; the expert matmuls take it
+    exactly into f32 and accumulate in f32 (the reference's
+    ``preferred_element_type``). ``record``, if given, gets the bytes of
+    the member's two exchanged buffers and its dropped assignments."""
     bl, sl, d = xl.shape
-    el = cfg.moe_num_experts // ep
     xt = xl.reshape(bl * sl, d)
     r = route(cfg, p, xt, cap)
     send = dispatch(cfg, r, xt, xl.dtype)
     recv = yield send
-    mine = slice(j * el, (j + 1) * el)
-    hg = torch.bmm(recv.float(), p["we_gate"][mine].float())
-    hi = torch.bmm(recv.float(), p["we_in"][mine].float())
+    hg = torch.bmm(recv.float(), p["we_gate"].float())
+    hi = torch.bmm(recv.float(), p["we_in"].float())
     eo = torch.bmm((activation(cfg, hg) * hi).to(recv.dtype).float(),
-                   p["we_out"][mine].float()).to(recv.dtype)
+                   p["we_out"].float()).to(recv.dtype)
     back = yield eo
     if record is not None:
         record.update(send_bytes=send.numel() * send.element_size(),
@@ -216,6 +307,8 @@ def _moe_forward_shmap(cfg, p: Dict, x: torch.Tensor, mesh=None,
     buffer it sends and of the outputs it gets back (together 2·E·C·D
     values, the reference's collective volume per device and layer) and
     its dropped assignments."""
+    if is_dtensor(x):
+        return _moe_forward_funcol(cfg, p, x, stats)
     if mesh is None:
         from repro_torch.dist import current_mesh
         mesh = current_mesh()
@@ -223,19 +316,9 @@ def _moe_forward_shmap(cfg, p: Dict, x: torch.Tensor, mesh=None,
             or cfg.moe_num_experts % mesh.shape["model"] != 0:
         return moe_forward(cfg, p, x)
     b, s, d = x.shape
-    ep = mesh.shape["model"]
+    ep, dp, ndp, s_loc, cap = _ep_layout(cfg, b, s, mesh.shape)
     el = cfg.moe_num_experts // ep
-    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-    ndp = 1
-    for a in dp:
-        ndp *= mesh.shape[a]
-    if b % ndp != 0:
-        raise ValueError(f"batch {b} does not split over the data axes "
-                         f"{dp} ({ndp} members)")
-    # per-member token count decides the SEND capacity
     b_loc = b // ndp
-    s_loc = s // ep if s % ep == 0 else s
-    cap = moe_capacity(cfg, max(b_loc, 1) * s_loc)
     # mesh entries by (data member, model member): the data axes flattened
     # outermost first, any other axis at its first entry
     names = list(mesh.axis_names)
@@ -251,11 +334,12 @@ def _moe_forward_shmap(cfg, p: Dict, x: torch.Tensor, mesh=None,
             rows = slice(i * b_loc, (i + 1) * b_loc)
             cols = slice(j * s_loc, (j + 1) * s_loc) if s_loc != s \
                 else slice(None)
-            pm = {k: p[k].to(dev) for k in ("router", "we_in", "we_gate",
-                                             "we_out")}
+            pm = {"router": p["router"].to(dev)}
+            pm.update({k: p[k][j * el:(j + 1) * el].to(dev)
+                       for k in ("we_in", "we_gate", "we_out")})
             records[i, j] = {} if stats is not None else None
-            gens[i, j] = _ep_member(cfg, pm, x[rows, cols].to(dev), cap, ep,
-                                    j, records[i, j])
+            gens[i, j] = _ep_member(cfg, pm, x[rows, cols].to(dev), cap,
+                                    records[i, j])
     # first exchange (tiled all_to_all, split axis 0, concat axis 1):
     # expert block k of member j's buffer goes to member k, concatenated
     # over j along the capacity axis
@@ -285,6 +369,88 @@ def _moe_forward_shmap(cfg, p: Dict, x: torch.Tensor, mesh=None,
     if cfg.moe_num_shared:
         xt = x.reshape(-1, d)
         out = out + _shared_out(cfg, p, xt).reshape(b, s, d).to(out.dtype)
+    return out
+
+
+def _exchange(t: torch.Tensor, group) -> torch.Tensor:
+    """A tiled all-to-all over ``group`` that splits ``t``'s axis 0 into
+    equal blocks, sends block k to member k and stacks what it gets on
+    axis 0 in member order; differentiable (its backward is the reverse
+    exchange)."""
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_to_all_single_autograd(
+        t.contiguous(), None, None, group))
+
+
+def _moe_forward_funcol(cfg, p: Dict, x: torch.Tensor,
+                        stats: Optional[Dict] = None) -> torch.Tensor:
+    """The expert-parallel MoE on a DTensor x over a ``DeviceMesh`` with a
+    "model" axis: ``_ep_member`` on every rank inside ``local_map``, the
+    reference's ``shard_map`` specs (router whole, experts over "model",
+    x's batch over the data axes and its sequence over "model" where it
+    divides), each of its two yields resolved by a functional
+    ``all_to_all_single`` over the "model" axis's group. Without a
+    "model" axis, or where ep does not divide E, the DTensor einsum path.
+    A (1, 1) mesh runs this path too, its exchanges one-rank all-to-alls.
+    Gradients hold where the sequence splits over "model" (every
+    production training shape): a sequence replicated over "model" is
+    routed by every member, and each copy's gradient reaches the experts.
+    ``stats`` gets ``capacity``, ``ep`` and this rank's record."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    e = cfg.moe_num_experts
+    if "model" not in names or e % mesh.size(names.index("model")) != 0:
+        return moe_forward(cfg, p, x)
+    b, s, d = x.shape
+    ep, dp, _, s_loc, cap = _ep_layout(
+        cfg, b, s, {n: mesh.size(i) for i, n in enumerate(names)})
+    el = e // ep
+    x_pl = tuple(Shard(0) if a in dp else
+                 Shard(1) if a == "model" and s_loc != s else Replicate()
+                 for a in names)
+    e_pl = tuple(Shard(0) if a == "model" else Replicate() for a in names)
+    whole = (Replicate(),) * mesh.ndim
+    # a gradient from this rank's tokens is a partial sum over the axes
+    # that split the tokens but not the weight
+    router_grad = tuple(Partial() if q.is_shard() else Replicate()
+                        for q in x_pl)
+    e_grad = tuple(Partial() if q.is_shard() and not w.is_shard() else w
+                   for q, w in zip(x_pl, e_pl))
+    group = mesh.get_group("model")
+    record = {} if stats is not None else None
+
+    def local(router, we_in, we_gate, we_out, xl):
+        gen = _ep_member(cfg, {"router": router, "we_in": we_in,
+                               "we_gate": we_gate, "we_out": we_out},
+                         xl, cap, record)
+        send = next(gen)                                  # (E, C, D)
+        # split axis 0, concat axis 1: (ep·el, C, D) from the members in
+        # order → (el, ep·C, D)
+        recv = _exchange(send, group).reshape(ep, el, cap, d) \
+            .transpose(0, 1).reshape(el, ep * cap, d)
+        eo = gen.send(recv)
+        # split axis 1, concat axis 0: capacity block j to member j
+        back = _exchange(eo.reshape(el, ep, cap, d).transpose(0, 1)
+                         .reshape(e, cap, d), group)
+        try:
+            gen.send(back)
+        except StopIteration as stop:
+            return stop.value
+        raise RuntimeError("_ep_member did not return after two exchanges")
+    out = local_map(
+        local, out_placements=list(x_pl),
+        in_placements=(whole, e_pl, e_pl, e_pl, x_pl),
+        in_grad_placements=(router_grad, e_grad, e_grad, e_grad, x_pl),
+        device_mesh=mesh, redistribute_inputs=True)(
+            p["router"], p["we_in"], p["we_gate"], p["we_out"], x)
+    if stats is not None:
+        stats.update(capacity=cap, ep=ep, members=[record])
+    if cfg.moe_num_shared:
+        xt = summed(gathered(x, 1).reshape(b * s, d))
+        sh = grad_gathered(_shared_out(cfg, p, xt).reshape(b, s, d), 1)
+        out = out + sh.to(out.dtype)
     return out
 
 

@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist import annotate
+from repro_torch.dist import annotate, gathered, grad_gathered, is_dtensor
 from repro_torch.models.lm.common import f32_leaves
 
 _C = 8.0
@@ -40,8 +40,14 @@ def rglru_params_shape(cfg):
 
 
 def _gates(p: Dict, x: torch.Tensor):
-    r = torch.sigmoid(x @ p["wa"] + p["ba"])
-    i = torch.sigmoid(x @ p["wi"] + p["bi"])
+    def proj(w):
+        # a full sequence's (B, S, W): the gradient gathered over S before
+        # the matmul's backward flattens (B, S), where DTensor may have
+        # left it sequence-sharded
+        y = x @ w
+        return grad_gathered(y, 1) if y.ndim == 3 else y
+    r = torch.sigmoid(proj(p["wa"]) + p["ba"])
+    i = torch.sigmoid(proj(p["wi"]) + p["bi"])
     log_a = -_C * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
@@ -52,7 +58,12 @@ def _gates(p: Dict, x: torch.Tensor):
 def _causal_conv(p: Dict, x: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over time. x: (B, S, W)."""
     w = p["conv_w"].shape[0]
-    xp = F.pad(x, (0, 0, w - 1, 0))
+    if is_dtensor(x):
+        # the same zeros in front of the sequence: torch 2.11's DTensor
+        # pads with placements its redistribution then cannot read
+        xp = torch.cat([torch.zeros_like(x[:, :1])] * (w - 1) + [x], dim=1)
+    else:
+        xp = F.pad(x, (0, 0, w - 1, 0))
     out = sum(xp[:, i:i + x.shape[1]] * p["conv_w"][i] for i in range(w))
     return out + p["conv_b"]
 
@@ -73,6 +84,10 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rglru_forward(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence. x: (B, S, D) → (B, S, D)."""
+    # not in the reference: the sequence gathered before the matmuls, which
+    # flatten (B, S), here and after the scan (XLA reshards by itself;
+    # DTensor cannot flatten a sequence-sharded tensor)
+    x = annotate(x, "batch", None, "embed")
     xf = x.float()
     main = xf @ p["w_main"].float()
     main = _causal_conv(f32_leaves(p, ("conv_w", "conv_b")), main)
@@ -80,7 +95,7 @@ def rglru_forward(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     a = annotate(a, "batch", "seq", None)
     h = linear_scan(a, b)
     gate = F.gelu(xf @ p["w_gate"].float(), approximate="tanh")
-    out = (h * gate) @ p["w_out"].float()
+    out = grad_gathered((gathered(h, 1) * gate) @ p["w_out"].float(), 1)
     return out.to(x.dtype)
 
 

@@ -82,7 +82,10 @@ def test_fresh_import_loads_no_jax_and_no_repro():
                 "repro_torch.dist.sharding", "repro_torch.launch.mesh",
                 "repro_torch.launch.dryrun",
                 "repro_torch.launch.hlo_analysis",
-                "repro_torch.launch.summarize"):
+                "repro_torch.launch.summarize", "repro_torch.analysis",
+                "repro_torch.analysis.cli", "repro_torch.analysis.model",
+                "repro_torch.analysis.jit_cache",
+                "repro_torch.analysis.locks"):
         assert mod in got["modules"]
     assert got["loaded"] == []
 
@@ -247,18 +250,62 @@ def test_mesh_and_dryrun_are_ported():
         hlo_analysis.StepCounter, summarize.roofline_table))
     assert "dispatch" in moe_forward.__code__.co_varnames
     # every module of the reference has its counterpart under the same
-    # path, but the invariant analyzer and the four Pallas kernel modules
-    # (ported as kernels/csrc/*.cu)
+    # path, but the four Pallas kernel modules (ported as
+    # kernels/csrc/*.cu)
     def tree(pkg):
         root = os.path.join(_ROOT, "src", pkg)
         return {os.path.relpath(os.path.join(d, f), root)
                 for d, _, fs in os.walk(root) for f in fs
                 if f.endswith(".py")}
     missing = tree("repro") - tree("repro_torch")
-    assert {m for m in missing if not m.startswith("analysis/")} == {
+    assert missing == {
         "kernels/flash_attention/flash_attention.py",
         "kernels/gather_rows/gather_rows.py", "kernels/spmm/fused.py",
         "kernels/spmm/spmm.py"}
+
+
+_ANALYSIS_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch.analysis
+mods = ["repro_torch.analysis"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.analysis.__path__, prefix="repro_torch.analysis.")]
+for m in mods:
+    importlib.import_module(m)
+print(json.dumps({"modules": mods, "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in (
+        "torch", "numpy", "jax", "jaxlib", "repro"))}))
+"""
+
+
+def test_the_analyzer_is_stdlib_only():
+    """``repro_torch.analysis`` imports neither ``torch`` nor ``repro``
+    (nor numpy or JAX), in a fresh interpreter and in its source: the
+    gate runs with no scientific stack, as the reference's does."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", _ANALYSIS_PROBE],
+                          capture_output=True, text=True, env=env,
+                          cwd=_ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(got["modules"]) == 10
+    assert got["loaded"] == []
+    pkg = os.path.join(_PORT, "analysis")
+    for fn in sorted(os.listdir(pkg)):
+        if not fn.endswith(".py"):
+            continue
+        with open(os.path.join(pkg, fn), encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] in sys.stdlib_module_names or \
+                    n == "__future__" or \
+                    n.startswith("repro_torch.analysis"), (fn, n)
 
 
 # The reference's lock-discipline rule scopes ``src/repro/serve/``,
