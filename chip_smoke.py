@@ -237,6 +237,24 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
               the ten LM archs on a fake (4, 4) group under this
               machine's torch (``smoke_sweep``), fatal on any cell's
               error; then the one-card anchor (``dryrun_phase``).
+27. examples — the port's eight examples (``repro_torch.examples``), each
+              ``main`` in-process on the card (``EXAMPLES``; the GNN ones
+              under ``--backend bcsr``, serve_lm at llama3.2-1b's full
+              config in bf16): seconds and launches, each fit's exact
+              ``spmm_bcsr`` count and above 0 on every bcsr example; the
+              weight-independent figures (fingerprints, batch counts and
+              bytes, engine and LRU counters, the refresh audit and swap,
+              out-of-core loads and shards) equal to the same examples run
+              on the CPU in a subprocess beside the LM phases
+              (``start_examples_cpu``); the card's trained weights served
+              and evaluated on the CPU within ATOL; serve_lm's tokens
+              equal in a second run, and one prefill of what it served
+              (16 flash launches, the kernel held on its own inputs)
+              (``examples_phase``).
+
+Every card-vs-CPU train step (phases train, sage, gat) holds each gradient
+element within ATOL and RTOL but one that a ReLU or LeakyReLU kink explains
+(``tests/_kinks.py``; ``step_vs_cpu``).
 
 The second-to-last line is a JSON ``kernels`` record and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -1850,6 +1868,16 @@ def train_launches_of(cfg, steps=1):
     return {k: 2 * v * steps for k, v in flash_launches_of(cfg).items()}
 
 
+def kink_rule():
+    """``tests/_kinks.py``, shared with the tests: ``kink_trace``, which
+    records (or forces the side of) every ReLU and LeakyReLU input, and
+    ``kink_witness``, the rule that excuses a gradient element of a
+    card-vs-CPU step only where a flipped kink explains it."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _kinks
+    return _kinks
+
+
 def f64_witness():
     """``tests/_f64.py``, shared with the tests: ``port_f64``, a dispatch
     mode that runs every op in f64 (so the port's own f32 casts do not
@@ -2884,6 +2912,356 @@ def dryrun_phase(ctx):
     del params
 
 
+# the examples phase: each port example (``repro_torch.examples``) in the
+# order README presents them, with its arguments on the card
+EXAMPLES = (
+    ("quickstart", ["--backend", "bcsr"]),
+    ("serve_gnn", ["--dataset", "arxiv-like", "--backend", "bcsr",
+                   "--epochs", "2"]),
+    ("train_ibmb_full", ["--dataset", "arxiv-like", "--model", "gcn",
+                         "--backend", "bcsr", "--epochs", "3"]),
+    ("dynamic_graph", ["--dataset", "small", "--backend", "bcsr",
+                       "--epochs", "2"]),
+    ("ooc_serve", ["--dataset", "small", "--backend", "bcsr"]),
+    ("serve_async", ["--dataset", "small", "--backend", "bcsr",
+                     "--epochs", "2"]),
+    ("inference_comparison", ["--epochs", "3"]),
+    ("serve_lm", ["--arch", LM_ARCH, "--requests", "6", "--slots", "2",
+                  "--new-tokens", "8"]),
+)
+# the CPU's run of the same GNN examples (in a subprocess beside the card
+# phases) takes fewer epochs: the figures it is held to do not depend on
+# the weights
+EXAMPLE_CPU_EPOCHS = {"quickstart": 2, "serve_gnn": 1, "train_ibmb_full": 1,
+                      "dynamic_graph": 1, "serve_async": 1,
+                      "inference_comparison": 1}
+# the weight-independent figures each GNN example's card run shares with
+# the CPU's
+EXAMPLE_FIGURES = {
+    "quickstart": ("num_nodes", "num_edges", "num_classes", "num_train",
+                   "train_batches", "val_batches", "train_plan_nbytes",
+                   "fingerprint", "test_batches", "batch_runs"),
+    "serve_gnn": ("test_batches", "test_plan_nbytes", "fingerprint",
+                  "batch_runs", "requests", "lru_hits", "burst_runs",
+                  "train_batches", "val_batches"),
+    "train_ibmb_full": ("num_nodes", "num_edges", "num_train",
+                        "fingerprints", "train_batches", "val_batches",
+                        "test_batches", "max_nodes", "max_edges", "hidden"),
+    "dynamic_graph": ("batches", "fingerprint", "batch_runs_v0",
+                      "lru_hits_v0", "delta", "refresh", "child_version",
+                      "child_fingerprint", "invalidated", "kept",
+                      "new_runs", "dirty", "versions", "swap_count",
+                      "evictions"),
+    "ooc_serve": ("batches", "payload_nbytes", "fingerprint", "loads",
+                  "hits", "evictions", "resident", "resident_bytes",
+                  "num_shards", "shards_hit", "bitwise_equal", "batch_runs"),
+    "serve_async": ("batches", "fingerprint", "rejected", "child_version",
+                    "swaps", "requests", "train_batches", "val_batches"),
+    "inference_comparison": ("train_batches", "val_batches", "batches"),
+}
+
+
+def jsonable(x):
+    """``x`` with tuples, numpy scalars and arrays and non-string keys
+    made what JSON writes and reads back alike."""
+    if isinstance(x, dict):
+        return {str(k): jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [jsonable(v) for v in x]
+    if hasattr(x, "tolist"):
+        return x.tolist()
+    return x
+
+
+def example_figures(name, fig):
+    """The figures of one GNN example's run that ``EXAMPLE_FIGURES`` names
+    (for inference_comparison, each method's batch count), and ooc_serve's
+    logits (its GCN is untrained: the same weights on both devices)."""
+    fig = dict(fig)
+    if name == "inference_comparison":
+        fig["batches"] = {k: m["batches"] for k, m in fig["methods"].items()}
+    out = {k: fig[k] for k in EXAMPLE_FIGURES[name]}
+    if name == "ooc_serve":
+        out["logits"] = fig["logits"]
+    return jsonable(out)
+
+
+def example_argv(name, argv, tmp, epochs=None):
+    """``argv`` with train_ibmb_full's checkpoint and plan directories
+    under ``tmp`` and, where given, ``--epochs`` replaced."""
+    argv = list(argv)
+    if name == "train_ibmb_full":
+        argv += ["--ckpt-dir", os.path.join(tmp, "ckpt"),
+                 "--plan-dir", os.path.join(tmp, "plans")]
+    if epochs is not None:
+        argv += ["--epochs", str(epochs)]
+    return argv
+
+
+def examples_on_cpu(examples, tmp, out_path=None):
+    """Each GNN example of ``examples`` (name, argv) run on the CPU with
+    ``EXAMPLE_CPU_EPOCHS``; returns (and with ``out_path`` writes as JSON)
+    each one's ``example_figures`` and seconds."""
+    import importlib
+    out = {}
+    for name, argv in examples:
+        if name not in EXAMPLE_FIGURES:
+            continue
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        t0 = time.perf_counter()
+        fig = mod.main(example_argv(name, argv, os.path.join(tmp, name),
+                                    EXAMPLE_CPU_EPOCHS.get(name)) +
+                       ["--device", "cpu"])
+        out[name] = dict(figures=example_figures(name, fig),
+                         seconds=time.perf_counter() - t0)
+    if out_path is not None:
+        with open(out_path + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(out_path + ".tmp", out_path)
+    return out
+
+
+def start_examples_cpu(out_path, log_path, tmp):
+    """Start ``examples_on_cpu`` over ``EXAMPLES`` in a subprocess at low
+    priority on 3 threads, beside the card phases. Returns its
+    ``Popen``."""
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); "
+            f"sys.path.insert(0, {SRC!r}); import torch; "
+            f"torch.set_num_threads(3); import chip_smoke; "
+            f"chip_smoke.examples_on_cpu(chip_smoke.EXAMPLES, {tmp!r}, "
+            f"{out_path!r})")
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="3")
+    log = open(log_path, "w")
+    proc = subprocess.Popen(["nice", "-n", "19", sys.executable, "-c", code],
+                            stdout=log, stderr=subprocess.STDOUT, env=env,
+                            cwd=ROOT, start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    atexit.register(stop)
+    return proc
+
+
+def wait_examples_cpu(proc, out_path, log_path, timeout):
+    """Wait for ``start_examples_cpu``'s run; fails if it fails. Returns
+    its figures."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the CPU's run of the examples took longer "
+                             f"than {timeout} s")
+    with open(log_path) as f:
+        log = f.read()
+    if rc:
+        raise AssertionError(f"the CPU's run of the examples exited {rc}:\n"
+                             f"{log[-4000:]}")
+    with open(out_path) as f:
+        return json.load(f)
+
+
+def example_spmm_want(name, fig):
+    """The exact number of ``spmm_bcsr`` launches an example's run makes
+    under a fixed bcsr backend (0 on segment): each train step aggregates
+    once per layer forward and once per layer backward, each evaluated or
+    served batch once per layer. None where no count is fixed (ooc_serve:
+    its shard engines keep their own counters)."""
+    if fig.get("backend", "bcsr") == "segment" or name == "serve_lm":
+        return 0
+    n_l = fig["num_layers"]
+
+    def fit(ep):
+        return 2 * n_l * fig["train_batches"] * ep + \
+            n_l * fig["val_batches"] * ep
+    if name == "quickstart":
+        return fit(fig["epochs_run"]) + n_l * (fig["test_batches"] +
+                                               fig["batch_runs"])
+    if name in ("serve_gnn", "dynamic_graph"):
+        return fit(fig["epochs_run"]) + n_l * fig["total_batch_runs"]
+    if name == "train_ibmb_full":
+        return fit(fig["epochs_run"]) + n_l * fig["test_batches"]
+    if name == "serve_async":
+        return sum(fit(ep) for ep in fig["epochs_run"].values()) + n_l * sum(
+            e["batch_runs"] for e in fig["engines"].values())
+    if name == "inference_comparison":
+        return fit(fig["epochs_run"]) + n_l * sum(
+            fig["methods"][k]["batches"] for k in ("ibmb_node",
+                                                   "ibmb_batch"))
+    return None
+
+
+def served_on_cpu(ctx, served):
+    """The CPU engine's answer to a GNN example's query, from the card's
+    trained parameters on the same Plan: the card's logits within ATOL."""
+    from repro_torch.optim import tree_map
+    from repro_torch.serve import GNNInferenceEngine
+    params = tree_map(lambda t: t.cpu(), served["params"])
+    want = GNNInferenceEngine(served["plan"], served["cfg"], params,
+                              backend=served["backend"],
+                              device="cpu").query(served["query"])
+    got = served["logits"]
+    err = float(ctx.np.abs(got - want).max())
+    ctx.np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    return err
+
+
+def examples_phase(ctx):
+    """Every port example's ``main`` in-process on ``ctx.dev`` with
+    ``ctx.examples`` (name, argv): its seconds and launches; on the card
+    the exact ``spmm_bcsr`` count (``example_spmm_want``), above 0 on
+    every bcsr example, and no flash launch in serve_lm's decode-only
+    engine. Then each GNN example's weight-independent figures equal to
+    ``ctx.cpu_examples()`` (the same examples on the CPU), and served
+    logits (evaluate losses for train_ibmb_full and the full-batch
+    baseline) from the card's trained parameters against the CPU's within
+    ATOL. serve_lm runs twice on the same weights: the same greedy tokens;
+    then one batched prefill of the served sequences through ``lm_forward``
+    (16 flash launches on the card), the kernel held on its own inputs
+    (``hold_flash``), its logits beside the plain path's. Sets
+    ``ctx.example_launches``."""
+    import importlib
+    torch, np, build = ctx.torch, ctx.np, ctx.build
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.lm import head_logits, init_params, lm_forward
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.models.lm import attention as lm_attention
+    runs, totals = {}, {}
+    for name, argv in ctx.examples:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        argv = example_argv(name, argv, os.path.join(ctx.work, name)) + [
+            "--device", str(ctx.dev)]
+        build.reset_launches()
+        t0 = time.perf_counter()
+        if name == "serve_lm":
+            args = mod.parser().parse_args(argv)
+            cfg = get_smoke_config(args.arch) if args.smoke else \
+                get_config(args.arch)
+            lm_params = init_params(cfg, torch.Generator(ctx.dev)
+                                    .manual_seed(0), ctx.dev)
+            fig = mod.run(args, params=lm_params)
+            lm_run = mod, args, cfg, lm_params
+        else:
+            fig = mod.main(argv)
+        ctx.sync()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in build.launches.items() if v}
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        want = example_spmm_want(name, fig)
+        print(f"example {name} {' '.join(argv)}: {secs:.2f} s (host "
+              f"clock), launches {counts}, spmm_bcsr wanted "
+              f"{'above 0' if want is None else want}", flush=True)
+        if ctx.on_card:
+            got = counts.get("spmm_bcsr", 0)
+            bcsr = "bcsr" in argv
+            if (want is not None and got != want) or (bcsr and got == 0):
+                raise AssertionError(f"{name}: spmm_bcsr launched {got} "
+                                     f"times, want {want}")
+            if name == "serve_lm" and counts.get("flash_attention", 0):
+                raise AssertionError("serve_lm's engine launched the flash "
+                                     "kernel: it runs decode steps only")
+        runs[name] = dict(fig=fig, seconds=secs, counts=counts)
+
+    # the same examples on the CPU: weight-independent figures equal
+    cpu = ctx.cpu_examples()
+    for name, r in cpu.items():
+        got = example_figures(name, runs[name]["fig"])
+        mine = {k: v for k, v in got.items() if k != "logits"}
+        theirs = {k: v for k, v in r["figures"].items() if k != "logits"}
+        if mine != theirs:
+            raise AssertionError(f"{name}: card figures {mine} != CPU "
+                                 f"figures {theirs}")
+        line = f"example {name}: {len(mine)} figures equal to the CPU's " \
+               f"run ({r['seconds']:.1f} s there)"
+        if name == "ooc_serve":
+            a, b = np.asarray(got["logits"]), np.asarray(r["figures"][
+                "logits"])
+            line += f"; logits max_abs_err {float(np.abs(a - b).max()):.3e}"
+            np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL)
+        print(line, flush=True)
+    # the card's trained parameters served and evaluated on the CPU
+    for name in ("quickstart", "serve_gnn", "dynamic_graph", "serve_async"):
+        err = served_on_cpu(ctx, runs[name]["fig"]["served"])
+        print(f"example {name}: served logits, card vs CPU from the card's "
+              f"trained parameters, max_abs_err {err:.3e}", flush=True)
+    from repro_torch.graph.datasets import get_dataset
+    from repro_torch.graph.sampling import make_batcher
+    from repro_torch.optim import tree_map
+    from repro_torch.train import GNNTrainer
+    for name, batches, loss in (
+            ("train_ibmb_full", runs["train_ibmb_full"]["fig"]["test_plan"],
+             runs["train_ibmb_full"]["fig"]["test_loss"]),
+            ("inference_comparison", make_batcher(
+                "full_batch", get_dataset("small"), split="test")
+             .epoch_batches(0),
+             runs["inference_comparison"]["fig"]["methods"]["full_batch"][
+                 "loss"])):
+        fig = runs[name]["fig"]
+        backend = fig["backend"] if name == "train_ibmb_full" else "segment"
+        want = GNNTrainer(fig["cfg"], backend=backend, device="cpu") \
+            .evaluate(tree_map(lambda t: t.cpu(), fig["params"]),
+                      batches)["loss"]
+        print(f"example {name}: evaluate loss {loss:.6f} on the card, "
+              f"{want:.6f} on the CPU from the card's parameters", flush=True)
+        if not abs(loss - want) <= ATOL + RTOL * abs(want):
+            raise AssertionError(f"{name}: evaluate loss {loss} on the card, "
+                                 f"{want} on the CPU")
+
+    # serve_lm: the same tokens again; one prefill of what it served
+    lm = runs["serve_lm"]["fig"]
+    mod, args, cfg, lm_params = lm_run
+    again = mod.run(args, params=lm_params)
+    if again["tokens"] != lm["tokens"]:
+        raise AssertionError(f"serve_lm's greedy tokens differ between two "
+                             f"runs: {lm['tokens']} then {again['tokens']}")
+    seqs = torch.as_tensor([p + t[:-1] for p, t in zip(lm["prompts"],
+                                                       lm["tokens"])],
+                           device=ctx.dev)
+    captured = {}
+    build.reset_launches()
+    with torch.no_grad(), flash_inputs(captured):
+        logits = head_logits(cfg, lm_params, lm_forward(cfg, lm_params,
+                                                        seqs)).float()
+    ctx.sync()
+    flash = build.launches.get("flash_attention", 0)
+    totals["flash_attention"] = totals.get("flash_attention", 0) + flash
+    n_att = cfg.num_layers
+    with torch.no_grad(), unittest.mock.patch.object(
+            lm_attention, "flash_attention",
+            lambda q, k, v, causal=True, window=0, impl=None: attention_ref(
+                q, k, v, causal=causal, window=window)):
+        plain = head_logits(cfg, lm_params, lm_forward(cfg, lm_params,
+                                                       seqs)).float()
+    scale = plain.abs().max().item() + 1e-9
+    gap = (logits - plain).abs().max().item()
+    # the first requests (one per slot) start at position 0, as the
+    # prefill does; later ones join the lockstep engine at its position
+    n_p, slots = len(lm["prompts"][0]), args.slots
+    agree = (logits[:slots, n_p - 1:].argmax(-1).cpu() == torch.as_tensor(
+        lm["tokens"][:slots])).float().mean().item()
+    print(f"example serve_lm: the same {sum(map(len, lm['tokens']))} greedy "
+          f"tokens in a second run; one prefill of the {len(seqs)} served "
+          f"sequences (B={seqs.shape[0]}, S={seqs.shape[1]}): "
+          f"flash_attention launches {flash} (want {n_att} when the kernel "
+          f"runs); logits {tuple(logits.shape)}, flash vs plain prefill "
+          f"max_abs_err {gap:.3e} / max |logit| {scale:.4f} = "
+          f"{gap / scale:.3e}; the prefill's argmax equal to the engine's "
+          f"greedy tokens at {agree * 100:.1f}% of the positions of the "
+          f"{slots} requests that started at position 0", flush=True)
+    if ctx.on_card and flash != n_att:
+        raise AssertionError(f"serve_lm's prefill launched flash_attention "
+                             f"{flash} times, want {n_att}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+    if ctx.on_card:
+        hold_flash(ctx, captured, "serve_lm's prefill")
+    print("examples: " + ", ".join(f"{k} {r['seconds']:.2f} s" for k, r in
+                                   runs.items()) + f"; launches {totals}",
+          flush=True)
+    ctx.example_launches = totals
+
+
 def spearman(np, a, b) -> float:
     """Spearman's rank correlation (tests/test_influence.py)."""
     ra = np.argsort(np.argsort(a))
@@ -3383,23 +3761,54 @@ def main() -> None:
 
     def step_vs_cpu(cfg_k, backend, params, host):
         """One train step on the card against the same step on the CPU, at
-        dropout 0, from the same parameters and batch: loss and gradients
-        within ATOL."""
+        dropout 0, from the same parameters and batch: the loss within ATOL
+        and every gradient element within ATOL and RTOL, but for one that
+        a kink explains (``tests/_kinks.py``): the ReLU and GAT's LeakyReLU
+        inputs are recorded on both devices, and where one lies within
+        ``KINK_ULPS`` ulps of 0 on opposite sides, the CPU's step is taken
+        again on the card's side of every such flip; an element that this
+        recomputation holds within ATOL and RTOL is excused. Prints the
+        flips and how many elements they excused, with the largest error;
+        fails on a flip farther from 0, an element the recomputation does
+        not hold, or more of a leaf excused than ``MAX_SHARE`` of it (at
+        least one element) for each flip."""
+        kinks = kink_rule()
         cfg0 = dataclasses.replace(cfg_k, dropout=0.0)
-        got_l, got_g = GNNTrainer(cfg0, backend=backend)._steps_for(
-            backend, 0)["grad"](params, stage(host, dev), None)
-        want_l, want_g = GNNTrainer(cfg0, backend=backend, device="cpu") \
-            ._steps_for(backend, 0)["grad"](
-                tree_map(lambda t: t.cpu(), params), stage(host, "cpu"),
-                None)
-        worst = abs(got_l.item() - want_l.item())
-        for a, b in zip(tree_leaves(got_g), tree_leaves(want_g)):
-            worst = max(worst, (a.cpu() - b).abs().max().item())
-            torch.testing.assert_close(a.cpu(), b, atol=ATOL, rtol=RTOL)
+        card = GNNTrainer(cfg0, backend=backend)._steps_for(
+            backend, 0)["grad"]
+        cpu = GNNTrainer(cfg0, backend=backend, device="cpu")._steps_for(
+            backend, 0)["grad"]
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        with kinks.kink_trace() as on_card:
+            got_l, got_g = card(params, stage(host, dev), None)
+        with kinks.kink_trace() as on_cpu:
+            want_l, want_g = cpu(cpu_params, stage(host, "cpu"), None)
+        flips = kinks.flips(on_card.inputs, on_cpu.inputs)
+        forced = None
+        if flips:
+            with kinks.kink_trace(kinks.sides_of(on_card.inputs)):
+                forced = tree_leaves(cpu(cpu_params, stage(host, "cpu"),
+                                         None)[1])
+        got_g, want_g = tree_leaves(got_g), tree_leaves(want_g)
+        excused, excused_err, problems = kinks.kink_witness(
+            got_g, want_g, forced, ATOL, RTOL, kinks.leaf_names(params),
+            len(flips))
+        problems += kinks.flip_problems(flips)
+        worst = max([abs(got_l.item() - want_l.item())] + [
+            (a.cpu() - b).abs().max().item() for a, b in zip(got_g, want_g)])
         torch.testing.assert_close(got_l.cpu(), want_l, atol=ATOL, rtol=RTOL)
         print(f"train step, card vs CPU (dropout 0): loss {got_l.item():.6f}"
               f" vs {want_l.item():.6f}, loss and gradients max_abs_err "
-              f"{worst:.3e}", flush=True)
+              f"{worst:.3e}; {len(flips)} ReLU/LeakyReLU inputs on opposite "
+              f"sides of 0 (at most "
+              f"{max([u for *_, u in flips], default=0.0):.2f} ulps from "
+              f"it), {excused} gradient elements outside ATOL/RTOL excused "
+              f"by them (largest error {excused_err:.3e})", flush=True)
+        for c, idx, a, b, u in flips[:8]:
+            print(f"  flip: traced call {c} at {idx}: card {a:.3e}, CPU "
+                  f"{b:.3e} ({u:.2f} ulps)", flush=True)
+        if problems:
+            raise AssertionError("card vs CPU step: " + "; ".join(problems))
 
     def profile_step(trainer, backend, params, host, kinds, rows=12):
         """One train step's device time: staging on the side stream, then
@@ -4224,6 +4633,13 @@ def main() -> None:
         checkpoint_phase(ctx)
         del serve_params, params, ctx.lm_params
 
+    # the GNN examples on the CPU, beside the LM phases; phase examples
+    # holds the card's runs to them
+    ex_out = os.path.join(work, "examples_cpu.json")
+    ex_log = os.path.join(work, "examples_cpu.log")
+    ex_proc = start_examples_cpu(ex_out, ex_log,
+                                 os.path.join(work, "examples_cpu"))
+
     # the other LM families and the frontends, each model freed before
     # the next is loaded
     torch.cuda.empty_cache()
@@ -4296,6 +4712,15 @@ def main() -> None:
 
     with phase("dryrun"):
         dryrun_phase(arch_ctx)
+
+    torch.cuda.empty_cache()
+    arch_ctx.examples = EXAMPLES
+    arch_ctx.cpu_examples = lambda: wait_examples_cpu(ex_proc, ex_out,
+                                                      ex_log, 600)
+    with phase("examples"):
+        examples_phase(arch_ctx)
+        for name in ("spmm_bcsr", "flash_attention"):
+            launches[name] += arch_ctx.example_launches.get(name, 0)
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,

@@ -36,6 +36,11 @@ print(json.dumps({"modules": mods, "loaded": sorted(
 """
 
 
+# the JAX package's example scripts, each a module of the port
+_EXAMPLES = sorted(f[:-3] for f in os.listdir(os.path.join(_ROOT, "examples"))
+                   if f.endswith(".py"))
+
+
 def _port_files():
     out = list(_SCRIPTS)
     for dirpath, _dirs, files in os.walk(_PORT):
@@ -85,7 +90,9 @@ def test_fresh_import_loads_no_jax_and_no_repro():
                 "repro_torch.launch.summarize", "repro_torch.analysis",
                 "repro_torch.analysis.cli", "repro_torch.analysis.model",
                 "repro_torch.analysis.jit_cache",
-                "repro_torch.analysis.locks"):
+                "repro_torch.analysis.locks", "repro_torch.examples",
+                "repro_torch.examples._common",
+                *(f"repro_torch.examples.{name}" for name in _EXAMPLES)):
         assert mod in got["modules"]
     assert got["loaded"] == []
 
@@ -262,6 +269,27 @@ def test_mesh_and_dryrun_are_ported():
         "kernels/flash_attention/flash_attention.py",
         "kernels/gather_rows/gather_rows.py", "kernels/spmm/fused.py",
         "kernels/spmm/spmm.py"}
+    # and every example script its module in repro_torch.examples
+    assert len(_EXAMPLES) == 8
+    assert {f"examples/{name}.py" for name in _EXAMPLES} <= \
+        tree("repro_torch")
+
+
+_EXAMPLES_PROBE = r"""
+import json, sys
+import repro_torch.examples
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.startswith("repro_torch.examples."))))
+"""
+
+
+def test_the_examples_package_imports_nothing_eagerly():
+    env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", _EXAMPLES_PROBE],
+                          capture_output=True, text=True, env=env, cwd=_ROOT,
+                          timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 _ANALYSIS_PROBE = r"""
