@@ -32,11 +32,11 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.graph.datasets import GraphDataset
 from repro_torch.core.ppr import push_appr, TopKPPR
 from repro_torch.core.partition import ppr_distance_partition, graph_partition, random_partition
@@ -106,14 +106,12 @@ class IBMBPipeline:
         """Node-wise APPR for the split's output nodes (cached — the paper
         re-uses preprocessing across models/seeds)."""
         if split not in self._ppr_cache:
-            # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-            t0 = time.time()
-            roots = self.ds.splits[split]
-            self._ppr_cache[split] = push_appr(
-                self.ds.graph, roots, alpha=self.cfg.alpha, eps=self.cfg.eps,
-                max_iters=self.cfg.push_iters, topk=self.cfg.ppr_topk())
-            # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-            self.timings[f"ppr/{split}"] = time.time() - t0
+            with obs.span("plan.ppr") as s:
+                self._ppr_cache[split] = push_appr(
+                    self.ds.graph, self.ds.splits[split],
+                    alpha=self.cfg.alpha, eps=self.cfg.eps,
+                    max_iters=self.cfg.push_iters, topk=self.cfg.ppr_topk())
+            self.timings[f"ppr/{split}"] = s.seconds
         return self._ppr_cache[split]
 
     # -- fingerprint --------------------------------------------------------
@@ -175,16 +173,18 @@ class IBMBPipeline:
             return stream_plan(self, split, for_inference, store_dir, ooc)
         mode = "inference" if for_inference else "train"
         batches = self.preprocess(split, for_inference=for_inference)
-        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-        t0 = time.time()
-        cache = BatchCache(batches)
-        sched = self.schedule(batches)
+        with obs.span("plan.cache") as s_cache:
+            cache = BatchCache(batches)
+            s_cache.add(bytes=cache.nbytes())
+        with obs.span("plan.schedule") as s_sched:
+            sched = self.schedule(batches)
         # the autotuner's per-batch half (DESIGN.md §14): backend decision
         # + tuned feature-tile width, stored in the plan (format v3) so
         # serving dispatches without re-measuring anything
-        backs, bfs, bstats = autotune.decide_batches(batches, self.cfg)
-        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-        self.timings[f"plan/{split}/{mode}"] = time.time() - t0
+        with obs.span("plan.autotune") as s_tune:
+            backs, bfs, bstats = autotune.decide_batches(batches, self.cfg)
+        self.timings[f"plan/{split}/{mode}"] = \
+            s_cache.seconds + s_sched.seconds + s_tune.seconds
         meta = dict(split=split, mode=mode, variant=self.cfg.variant,
                     backend=self.cfg.backend,
                     num_classes=int(self.ds.num_classes),
@@ -237,23 +237,21 @@ class IBMBPipeline:
                 f"refresh: plan fingerprint {plan.fingerprint!r} does not "
                 f"match this pipeline's pre-delta state ({expect!r}) — "
                 f"refresh continues a chain, it cannot adopt a foreign plan")
-        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-        t0 = time.time()
-        old_ds = self.ds
-        new_ds = delta.apply(old_ds)
-        updater = PlanUpdater(self.cfg, old_ds, new_ds, delta)
-        old_ppr = self._ppr_cache.get(split)
-        # advance the pipeline to the post-delta graph
-        self.ds = new_ds
-        self._content_sha_cache = None
-        self._ppr_cache.clear()
-        child, audit = updater.refresh(
-            plan, fingerprint=self.fingerprint(split, for_inference),
-            old_ppr=old_ppr)
-        if updater.new_ppr is not None:
-            self._ppr_cache[split] = updater.new_ppr
-        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-        self.timings[f"refresh/{split}/{mode}"] = time.time() - t0
+        with obs.span("plan.refresh") as s:
+            old_ds = self.ds
+            new_ds = delta.apply(old_ds)
+            updater = PlanUpdater(self.cfg, old_ds, new_ds, delta)
+            old_ppr = self._ppr_cache.get(split)
+            # advance the pipeline to the post-delta graph
+            self.ds = new_ds
+            self._content_sha_cache = None
+            self._ppr_cache.clear()
+            child, audit = updater.refresh(
+                plan, fingerprint=self.fingerprint(split, for_inference),
+                old_ppr=old_ppr)
+            if updater.new_ppr is not None:
+                self._ppr_cache[split] = updater.new_ppr
+        self.timings[f"refresh/{split}/{mode}"] = s.seconds
         return child, audit
 
     # -- full preprocessing -------------------------------------------------
@@ -289,25 +287,26 @@ class IBMBPipeline:
 
     def preprocess(self, split: str, for_inference: bool = False) -> List[PaddedBatch]:
         cfg = self.cfg
-        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-        t0 = time.time()
-        parts, aux = self.partition(split, for_inference)
-
-        batches = build_batches(
-            self.ds.norm_graph, self.ds.features, self.ds.labels,
-            parts, aux, cache_features=cfg.cache_features,
-            pad_multiple=cfg.pad_multiple,
-            bcsr_block=cfg.bcsr_block if cfg.backend == "bcsr" else None,
-            reorder=cfg.reorder)
-        if cfg.backend == "bcsr" and cfg.autotune and cfg.tune_blocks:
-            # the autotuner's per-plan half: sweep tile-size candidates by
-            # padded MXU work and retile to the winner (DESIGN.md §14)
-            batches, _block = autotune.retune_tile_block(batches, cfg)
+        # the partition span holds the split's PPR when it is not cached,
+        # so preprocessing's timing holds it too, as it always has
+        with obs.span("plan.partition") as s_part:
+            parts, aux = self.partition(split, for_inference)
+        with obs.span("plan.batches") as s_batch:
+            batches = build_batches(
+                self.ds.norm_graph, self.ds.features, self.ds.labels,
+                parts, aux, cache_features=cfg.cache_features,
+                pad_multiple=cfg.pad_multiple,
+                bcsr_block=cfg.bcsr_block if cfg.backend == "bcsr" else None,
+                reorder=cfg.reorder)
+            if cfg.backend == "bcsr" and cfg.autotune and cfg.tune_blocks:
+                # the autotuner's per-plan half: sweep tile-size candidates
+                # by padded MXU work and retile to the winner (DESIGN.md §14)
+                batches, _block = autotune.retune_tile_block(batches, cfg)
         # keyed by mode as well as split: preprocessing the same split for
         # training AND inference must not silently overwrite one timing.
         mode = "inference" if for_inference else "train"
-        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-        self.timings[f"preprocess/{split}/{mode}"] = time.time() - t0
+        self.timings[f"preprocess/{split}/{mode}"] = \
+            s_part.seconds + s_batch.seconds
         return batches
 
     def build_cache(self, batches: List[PaddedBatch]) -> BatchCache:

@@ -13,6 +13,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
+
 
 def label_distributions(batch_labels: Sequence[np.ndarray], num_classes: int,
                         smooth: float = 1e-6) -> np.ndarray:
@@ -106,13 +108,15 @@ def make_schedule(
 ) -> np.ndarray:
     """Return the batch visit order for `num_epochs` epochs, flattened."""
     n = len(batch_labels)
-    if mode == "none" or n <= 2:
-        return np.tile(np.arange(n), num_epochs)
-    p = label_distributions(batch_labels, num_classes)
-    d = pairwise_kl_distance(p)
-    if mode == "tsp":
-        order = tsp_max_order(d, seed=seed)
-        return np.tile(order, num_epochs)
-    if mode == "weighted":
-        return weighted_sampling_order(d, num_epochs=num_epochs, seed=seed)
-    raise ValueError(f"unknown schedule mode: {mode}")
+    with obs.span("schedule.order", batches=n):
+        if mode == "none" or n <= 2:
+            return np.tile(np.arange(n), num_epochs)
+        p = label_distributions(batch_labels, num_classes)
+        d = pairwise_kl_distance(p)
+        if mode == "tsp":
+            order = tsp_max_order(d, seed=seed)
+            return np.tile(order, num_epochs)
+        if mode == "weighted":
+            return weighted_sampling_order(d, num_epochs=num_epochs,
+                                           seed=seed)
+        raise ValueError(f"unknown schedule mode: {mode}")

@@ -32,7 +32,9 @@ from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceSpec, resolve_device, to_tensor
+from repro_torch import obs
+from repro_torch.device import (DeviceSpec, host_nbytes, resolve_device,
+                                to_tensor)
 from repro_torch.faults import NO_FAULTS
 
 _STOP = object()
@@ -183,12 +185,21 @@ class PrefetchLoader:
         streams = {d: torch.cuda.Stream(d) for d in set(devices)
                    if d.type == "cuda"}
 
-        def stage(item):
+        # the worker's spans are children of the span open where the
+        # iteration starts (the trainer's epoch)
+        parent = obs.current()
+
+        def stage(pos, item):
             if not self.group:
-                return stage_batch(item, self.device,
-                                   streams.get(self.device))
+                with obs.span("loader.stage", parent=parent,
+                              batch=int(self.order[pos])) as s:
+                    s.add(bytes=host_nbytes(item))
+                    return stage_batch(item, self.device,
+                                       streams.get(self.device))
             stacked, w = item
-            return stage_superstep(stacked, devices, streams), w
+            with obs.span("loader.stage", parent=parent, superstep=pos) as s:
+                s.add(bytes=host_nbytes(stacked))
+                return stage_superstep(stacked, devices, streams), w
 
         def ready(staged):
             if not self.group:
@@ -208,10 +219,10 @@ class PrefetchLoader:
 
         def worker():
             try:
-                for item in self._items():
+                for pos, item in enumerate(self._items()):
                     if cancel.is_set():
                         return
-                    if not put(stage(item)):
+                    if not put(stage(pos, item)):
                         return
                 put(_STOP)
             except BaseException as e:   # surface in the consumer, never hang
@@ -223,7 +234,8 @@ class PrefetchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with obs.span("loader.wait"):
+                    item = q.get()
                 if item is _STOP:
                     break
                 if isinstance(item, BaseException):

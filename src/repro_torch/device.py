@@ -34,6 +34,11 @@ def to_tensor(a, device: DeviceSpec = None) -> torch.Tensor:
     return t.clone() if dev.type == "cpu" else t.to(dev)
 
 
+def host_nbytes(batch: Mapping[str, np.ndarray]) -> int:
+    """The bytes ``stage`` copies for ``batch``: its host arrays' sizes."""
+    return sum(np.asarray(v).nbytes for v in batch.values())
+
+
 def stage(batch: Mapping[str, np.ndarray],
           device: DeviceSpec = None) -> Dict[str, torch.Tensor]:
     """Copy one batch's host arrays to ``device`` (one copy per field)."""

@@ -48,11 +48,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import List, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import autotune
 from repro_torch.core.batches import BatchCache, _round_up, build_batches
 from repro_torch.core.plan import Plan, RoutingIndex, encode_backends
@@ -197,33 +197,35 @@ def stream_plan(pipe, split: str, for_inference: bool, store_dir: str,
     ooc = ooc or OOCConfig()
     cfg = pipe.cfg
     mode = "inference" if for_inference else "train"
-    # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-    t0 = time.time()
-    parts, aux = pipe.partition(split, for_inference)
-    caps = _measure_caps(pipe, parts, aux)
-    pad_k = block = None
-    if cfg.backend == "bcsr":
-        block, pad_k = _measure_bcsr(pipe, parts, aux, caps[0])
+    with obs.span("plan.partition") as s_part:
+        parts, aux = pipe.partition(split, for_inference)
+    # the batches' span is opened twice: the caps' pass, then the stream
+    with obs.span("plan.batches") as s_batch:
+        caps = _measure_caps(pipe, parts, aux)
+        pad_k = block = None
+        if cfg.backend == "bcsr":
+            block, pad_k = _measure_bcsr(pipe, parts, aux, caps[0])
 
     writer = PlanStoreWriter(store_dir)
     chunk = max(1, int(ooc.chunk_batches))
     try:
-        labels, (trip_ids, trip_b, trip_r), members, decisions = \
-            stream_chunks(pipe, parts, aux, caps, pad_k, writer, chunk,
-                          bcsr_block=block)
+        with obs.span("plan.batches") as s_stream:
+            labels, (trip_ids, trip_b, trip_r), members, decisions = \
+                stream_chunks(pipe, parts, aux, caps, pad_k, writer, chunk,
+                              bcsr_block=block)
         backs, bfs, bstats = decisions
-
-        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-        pipe.timings[f"preprocess/{split}/{mode}"] = time.time() - t0
-        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-        t1 = time.time()
-        sched = make_schedule(labels, pipe.ds.num_classes, mode=cfg.schedule,
-                              num_epochs=1, seed=cfg.seed)
-        routing = RoutingIndex.from_triplets(np.concatenate(trip_ids),
-                                             np.concatenate(trip_b),
-                                             np.concatenate(trip_r))
-        # lint: allow(determinism) — timing telemetry only, never fed into the plan payload or fingerprint
-        pipe.timings[f"plan/{split}/{mode}"] = time.time() - t1
+        pipe.timings[f"preprocess/{split}/{mode}"] = \
+            s_part.seconds + s_batch.seconds + s_stream.seconds
+        with obs.span("plan.schedule") as s_sched:
+            sched = make_schedule(labels, pipe.ds.num_classes,
+                                  mode=cfg.schedule, num_epochs=1,
+                                  seed=cfg.seed)
+        with obs.span("plan.routing") as s_route:
+            routing = RoutingIndex.from_triplets(np.concatenate(trip_ids),
+                                                 np.concatenate(trip_b),
+                                                 np.concatenate(trip_r))
+        pipe.timings[f"plan/{split}/{mode}"] = \
+            s_sched.seconds + s_route.seconds
         meta = dict(split=split, mode=mode, variant=cfg.variant,
                     backend=cfg.backend,
                     num_classes=int(pipe.ds.num_classes),

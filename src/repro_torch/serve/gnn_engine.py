@@ -44,18 +44,23 @@ per tenant.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.plan import Plan, check_routing
-from repro_torch.device import DeviceSpec, resolve_device, stage
+from repro_torch.device import DeviceSpec, host_nbytes, resolve_device, stage
 from repro_torch.models.gnn import ops as gnn_ops
 from repro_torch.models.gnn import policy as gnn_policy
 from repro_torch.models.gnn.models import GNNConfig, gnn_apply, output_logits
 from repro_torch.serve.common import SystemClock
+
+#: the id each ``run`` gives its spans, one process-wide sequence
+_RUN_IDS = itertools.count(1)
 
 
 @dataclasses.dataclass
@@ -286,9 +291,15 @@ class GNNInferenceEngine:
         if len(missing) == 1 or self._ex is None:
             for bi in missing:
                 fwd = self._forward_for(*self._decisions[bi])
-                out = fwd(self.params, stage(self.plan.cache[bi],
-                                             self.device))
-                yield bi, self._lru_put(bi, out.cpu().numpy())
+                host = self.plan.cache[bi]
+                with obs.span("engine.stage", batch=bi) as s:
+                    s.add(bytes=host_nbytes(host))
+                    batch = stage(host, self.device)
+                with obs.span("engine.forward", batch=bi):
+                    out = fwd(self.params, batch)
+                with obs.span("engine.fetch", batch=bi):
+                    out = out.cpu().numpy()
+                yield bi, self._lru_put(bi, out)
             return
         from repro_torch.dist.data_parallel import superstep_indices
         (idx, w), = superstep_indices(np.asarray(missing), self._ex.world)
@@ -347,42 +358,45 @@ class GNNInferenceEngine:
         needed by ANY request runs at most once (then serves them all).
         Records per-request latency (admission → completion). A request with
         ids the plan does not cover gets its `error` set and is skipped."""
-        t0 = self.clock.now()
-        routed = []
-        for req in requests:
-            q = np.asarray(req.node_ids, dtype=np.int64).ravel()
-            try:
-                bidx, rows = self.plan.routing.lookup(q)
-            except KeyError as e:
-                req.error = str(e)
-                req.done, req.logits = False, None
-                continue
-            req.logits = None
-            routed.append((req, q, bidx, rows))
-            self._bump(requests=1, nodes=len(q))
-        # batch → request indices, so completion is tracked per request as
-        # its last batch lands
-        needed: "OrderedDict[int, List[int]]" = OrderedDict()
-        remaining = []
-        for ri, (_req, _q, bidx, _rows) in enumerate(routed):
-            uniq = np.unique(bidx)
-            remaining.append(len(uniq))
-            for bi in uniq:
-                needed.setdefault(int(bi), []).append(ri)
-        for bi, lg in self._iter_logits(list(needed)):
-            for ri in needed[bi]:
-                req, q, bidx, rows = routed[ri]
-                if req.logits is None:
-                    req.logits = np.empty((len(q), lg.shape[1]), lg.dtype)
-                sel = bidx == bi
-                req.logits[sel] = lg[rows[sel]]
-                remaining[ri] -= 1
-                if remaining[ri] == 0:
-                    req.done = True
-                    req.latency_s = self.clock.now() - t0
-        for req, q, _bidx, _rows in routed:          # empty requests
-            if len(q) == 0:
-                req.logits = np.zeros((0, self.cfg.out_dim), np.float32)
-                req.done, req.latency_s = True, self.clock.now() - t0
+        with obs.span("engine.run", run=next(_RUN_IDS),
+                      requests=len(requests)) as run_span:
+            t0 = self.clock.now()
+            routed = []
+            for req in requests:
+                q = np.asarray(req.node_ids, dtype=np.int64).ravel()
+                try:
+                    bidx, rows = self.plan.routing.lookup(q)
+                except KeyError as e:
+                    req.error = str(e)
+                    req.done, req.logits = False, None
+                    continue
+                req.logits = None
+                routed.append((req, q, bidx, rows))
+                self._bump(requests=1, nodes=len(q))
+                run_span.add(nodes=len(q))
+            # batch → request indices, so completion is tracked per request
+            # as its last batch lands
+            needed: "OrderedDict[int, List[int]]" = OrderedDict()
+            remaining = []
+            for ri, (_req, _q, bidx, _rows) in enumerate(routed):
+                uniq = np.unique(bidx)
+                remaining.append(len(uniq))
+                for bi in uniq:
+                    needed.setdefault(int(bi), []).append(ri)
+            for bi, lg in self._iter_logits(list(needed)):
+                for ri in needed[bi]:
+                    req, q, bidx, rows = routed[ri]
+                    if req.logits is None:
+                        req.logits = np.empty((len(q), lg.shape[1]), lg.dtype)
+                    sel = bidx == bi
+                    req.logits[sel] = lg[rows[sel]]
+                    remaining[ri] -= 1
+                    if remaining[ri] == 0:
+                        req.done = True
+                        req.latency_s = self.clock.now() - t0
+            for req, q, _bidx, _rows in routed:          # empty requests
+                if len(q) == 0:
+                    req.logits = np.zeros((0, self.cfg.out_dim), np.float32)
+                    req.done, req.latency_s = True, self.clock.now() - t0
         return {"requests": len(requests), "batch_runs_total":
                 self.stats["batch_runs"], "time_s": self.clock.now() - t0}

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.batches import BatchCache, PaddedBatch
 from repro_torch.core.plan import Plan
 from repro_torch.core.scheduling import make_schedule
@@ -243,6 +244,53 @@ class GNNTrainer:
         n = max(tot_n, 1.0)
         return {"loss": tot_l / n, "acc": tot_a / n}
 
+    def _device_epoch(self, host, order, decisions, params, opt_state,
+                      base: int, ep: int, accum, apply_step):
+        """One epoch on the trainer's device, batch by batch in ``order``,
+        each step under a ``train.step`` span and its loss read under
+        ``train.loss_read``. Returns params, optimizer state, and the loss
+        sum and count over the steps taken."""
+        ep_loss, nsteps = 0.0, 0
+        loader = PrefetchLoader(host, order, device=self.device)
+        for bi, batch in enumerate(loader):
+            with obs.span("train.step", step=bi):
+                # loader position bi holds batch order[bi]; its stored
+                # decision picks the step set (uniform when fixed)
+                steps = self._steps_for(*decisions[int(order[bi])])
+                gen = step_generator(base, ep, bi, self.device)
+                lr = self.sched.lr
+                if self.grad_accum == 1:
+                    if self.nonfinite_policy == "off":
+                        params, opt_state, loss = steps["train"](
+                            params, opt_state, batch, lr, gen)
+                    else:
+                        params, opt_state, loss, ok = steps["guarded"](
+                            params, opt_state, batch, lr, gen)
+                        if not ok:
+                            self._on_nonfinite(ep, bi)
+                            continue   # loss is poisoned; update held
+                else:
+                    loss, grads = steps["grad"](params, batch, gen)
+                    if self.nonfinite_policy != "off" and \
+                            not _tree_finite(loss, grads):
+                        # never let a NaN enter the accumulator: one bad
+                        # micro-batch would poison the whole macro-step
+                        self._on_nonfinite(ep, bi)
+                        continue
+                    g = accum.add(grads)
+                    if g is not None:
+                        params, opt_state = apply_step(
+                            params, opt_state, g, lr)
+                with obs.span("train.loss_read"):
+                    ep_loss += float(loss)
+                nsteps += 1
+        if self.grad_accum > 1:
+            g = accum.flush()
+            if g is not None:
+                params, opt_state = apply_step(params, opt_state, g,
+                                               self.sched.lr)
+        return params, opt_state, ep_loss, nsteps
+
     def _mesh_epoch(self, executor, host, order, decisions, params, replicas,
                     opt_state, base: int, ep: int):
         """One epoch of super-steps (DESIGN.md §9). Member j of super-step
@@ -368,60 +416,26 @@ class GNNTrainer:
             self.cfg, "bcsr_block_f", 0)))["apply"]
 
         for ep in range(epochs):
-            t0 = time.time()
-            if not fixed:  # resampling baselines pay regeneration every epoch
-                epoch_pb = train_batches.epoch_batches(ep)
-                host = as_host_batches(epoch_pb)
-                order = np.random.default_rng(self.seed + ep).permutation(
-                    len(host))
-                decisions = gnn_policy.batch_decisions(
-                    epoch_pb, self.policy, self.cfg)
-            else:
-                order = order_fn(ep)
-            if executor is not None:
-                params, opt_state, ep_loss, nsteps = self._mesh_epoch(
-                    executor, host, order, decisions, params, replicas,
-                    opt_state, base, ep)
-            else:
-                ep_loss = 0.0
-                nsteps = 0
-                loader = PrefetchLoader(host, order, device=self.device)
-                for bi, batch in enumerate(loader):
-                    # loader position bi holds batch order[bi]; its stored
-                    # decision picks the step set (uniform when fixed)
-                    steps = self._steps_for(*decisions[int(order[bi])])
-                    gen = step_generator(base, ep, bi, self.device)
-                    lr = self.sched.lr
-                    if self.grad_accum == 1:
-                        if self.nonfinite_policy == "off":
-                            params, opt_state, loss = steps["train"](
-                                params, opt_state, batch, lr, gen)
-                        else:
-                            params, opt_state, loss, ok = steps["guarded"](
-                                params, opt_state, batch, lr, gen)
-                            if not ok:
-                                self._on_nonfinite(ep, bi)
-                                continue   # loss is poisoned; update held
-                    else:
-                        loss, grads = steps["grad"](params, batch, gen)
-                        if self.nonfinite_policy != "off" and \
-                                not _tree_finite(loss, grads):
-                            # never let a NaN enter the accumulator: one bad
-                            # micro-batch would poison the whole macro-step
-                            self._on_nonfinite(ep, bi)
-                            continue
-                        g = accum.add(grads)
-                        if g is not None:
-                            params, opt_state = apply_step(
-                                params, opt_state, g, lr)
-                    ep_loss += float(loss)
-                    nsteps += 1
-                if self.grad_accum > 1:
-                    g = accum.flush()
-                    if g is not None:
-                        params, opt_state = apply_step(params, opt_state, g,
-                                                       self.sched.lr)
-            epoch_times.append(time.time() - t0)
+            with obs.span("train.epoch", epoch=ep) as ep_span:
+                if not fixed:  # resampling baselines regenerate every epoch
+                    epoch_pb = train_batches.epoch_batches(ep)
+                    host = as_host_batches(epoch_pb)
+                    order = np.random.default_rng(self.seed + ep) \
+                        .permutation(len(host))
+                    decisions = gnn_policy.batch_decisions(
+                        epoch_pb, self.policy, self.cfg)
+                else:
+                    order = order_fn(ep)
+                if executor is not None:
+                    params, opt_state, ep_loss, nsteps = self._mesh_epoch(
+                        executor, host, order, decisions, params, replicas,
+                        opt_state, base, ep)
+                else:
+                    params, opt_state, ep_loss, nsteps = self._device_epoch(
+                        host, order, decisions, params, opt_state, base, ep,
+                        accum, apply_step)
+                ep_span.add(steps=nsteps)
+            epoch_times.append(ep_span.seconds)
 
             if (ep + 1) % eval_every == 0:
                 val = executor.evaluate(replicas, val_host,
