@@ -1,0 +1,22 @@
+"""pinned_share.train: share (%) of the bytes the loader's worker staged
+in the training window that it copied from page-locked host memory
+(Σ ``pinned_bytes`` over Σ ``bytes`` of ``loader.stage``); moves
+train_nodes_per_s. None where the program's staging spans carry no
+``pinned_bytes`` count.
+"""
+from perfbench.harness import spans
+
+
+def pinned_share(snap, name):
+    if not snap or snap["dropped"] > 0:
+        return None
+    rows = [r["attrs"] for r in snap["records"] if r["name"] == name]
+    if not rows or any("pinned_bytes" not in a for a in rows):
+        return None
+    total = sum(a.get("bytes", 0) for a in rows)
+    return 100.0 * sum(a["pinned_bytes"] for a in rows) / total \
+        if total > 0 else None
+
+
+def read(ctx):
+    return pinned_share(spans.snapshot(), "loader.stage")

@@ -9,8 +9,13 @@ On a CUDA device the worker stages on a side ``torch.cuda.Stream`` of its
 own and records an event after the copies; the consumer makes its current
 stream wait on that event and calls ``record_stream`` on every staged
 tensor, so the caching allocator never hands a staged buffer to another
-stream while the step still reads it. Copies are from pageable host memory
-(pinned buffers are ROADMAP.md Queue 4 item 8).
+stream while the step still reads it. A resident ``BatchCache`` (or a
+Plan's) is page-locked in place when the loader is made
+(``device.page_lock``, once per cache), so its batches copy by DMA,
+``non_blocking``, and the step's own CUDA calls run beside the copy; the
+worker waits for its copies' event before it queues the batch, so the
+``loader.stage`` span holds the copies' time. Other containers, and
+super-steps, copy from pageable memory.
 
 With ``group`` (super-step staging, DESIGN.md §9) the worker stacks
 ``group`` batches on the host and stages them as one super-step; with a
@@ -33,8 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.device import (DeviceSpec, host_nbytes, resolve_device,
-                                to_tensor)
+from repro_torch.device import (DeviceSpec, copy_batch, host_nbytes,
+                                page_lock, pinned_nbytes, resolve_device)
 from repro_torch.faults import NO_FAULTS
 
 _STOP = object()
@@ -48,14 +53,21 @@ def stage_batch(batch: Mapping[str, np.ndarray], device: torch.device,
     (``device``'s current stream when None), returning the event that
     marks the copies' end (None on the CPU)."""
     if device.type != "cuda":
-        return {k: to_tensor(v, device) for k, v in batch.items()}, None
+        return copy_batch(batch, device), None
     if stream is None:
         stream = torch.cuda.current_stream(device)
     with torch.cuda.stream(stream):
-        out = {k: to_tensor(v, device) for k, v in batch.items()}
+        out = copy_batch(batch, device)
         done = torch.cuda.Event()
         done.record(stream)
     return out, done
+
+
+def _wait(staged: Sequence[Staged]) -> None:
+    """Block until the copies of ``staged`` are done."""
+    for _batch, done in staged:
+        if done is not None:
+            done.synchronize()
 
 
 def consume(staged: Staged, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -149,6 +161,8 @@ class PrefetchLoader:
                 f"order references batch {int(order.max())} but the "
                 f"container holds {len(batches)} batches — is this schedule "
                 f"from a different (e.g. pre-refresh) plan version?")
+        if self.members is None:
+            page_lock(batches, device)
         self.batches = batches
         self.order = order
         self.prefetch = max(1, prefetch)
@@ -193,13 +207,19 @@ class PrefetchLoader:
             if not self.group:
                 with obs.span("loader.stage", parent=parent,
                               batch=int(self.order[pos])) as s:
-                    s.add(bytes=host_nbytes(item))
-                    return stage_batch(item, self.device,
-                                       streams.get(self.device))
+                    s.add(bytes=host_nbytes(item),
+                          pinned_bytes=pinned_nbytes(item, self.device))
+                    staged = stage_batch(item, self.device,
+                                         streams.get(self.device))
+                    _wait([staged])
+                    return staged
             stacked, w = item
             with obs.span("loader.stage", parent=parent, superstep=pos) as s:
-                s.add(bytes=host_nbytes(stacked))
-                return stage_superstep(stacked, devices, streams), w
+                s.add(bytes=host_nbytes(stacked),
+                      pinned_bytes=pinned_nbytes(stacked, devices[0]))
+                parts = stage_superstep(stacked, devices, streams)
+                _wait([staged for staged, _dev in parts])
+                return parts, w
 
         def ready(staged):
             if not self.group:

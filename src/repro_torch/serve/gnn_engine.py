@@ -10,7 +10,9 @@ ids, answered from a ``Plan`` with no preprocessing on the request path:
 3. **Execute** — one forward per (backend, block_f) decision: fixed
    policies run every batch on one backend; ``BackendPolicy.auto()``
    follows the plan's stored autotuner decisions (DESIGN.md §14). Each
-   missing batch's host arrays are staged to the device once per forward;
+   missing batch's host arrays are staged to the device once per forward
+   (from the plan's cache, page-locked in place on a CUDA device:
+   ``device.page_lock``, at construction and on every ``swap``);
    with the bcsr backend on a CUDA device the GCN's and SAGE's aggregation
    is the hand-written block-CSR SpMM kernel (GAT runs the segment path).
 4. **Gather** — per-node logit rows are sliced out of the batch output,
@@ -53,7 +55,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.plan import Plan, check_routing
-from repro_torch.device import DeviceSpec, host_nbytes, resolve_device, stage
+from repro_torch.device import (DeviceSpec, host_nbytes, page_lock,
+                                pinned_nbytes, resolve_device, stage)
 from repro_torch.models.gnn import ops as gnn_ops
 from repro_torch.models.gnn import policy as gnn_policy
 from repro_torch.models.gnn.models import GNNConfig, gnn_apply, output_logits
@@ -133,6 +136,8 @@ class GNNInferenceEngine:
         self._base_key = (model_cfg.backend,
                           int(getattr(model_cfg, "bcsr_block_f", 0)))
         self._forward = self._build_forward(*self._base_key)
+        # the plan's resident cache copies by DMA (device.page_lock)
+        page_lock(plan.cache, self.device)
 
     @property
     def params(self):
@@ -242,6 +247,7 @@ class GNNInferenceEngine:
             raise
         finally:
             self._replicate()
+        page_lock(plan.cache, self.device)
         self.swap_audit.append(dict(
             ok=True, from_version=getattr(prev[0], "version", 0),
             to_version=getattr(plan, "version", 0),
@@ -293,7 +299,8 @@ class GNNInferenceEngine:
                 fwd = self._forward_for(*self._decisions[bi])
                 host = self.plan.cache[bi]
                 with obs.span("engine.stage", batch=bi) as s:
-                    s.add(bytes=host_nbytes(host))
+                    s.add(bytes=host_nbytes(host),
+                          pinned_bytes=pinned_nbytes(host, self.device))
                     batch = stage(host, self.device)
                 with obs.span("engine.forward", batch=bi):
                     out = fwd(self.params, batch)

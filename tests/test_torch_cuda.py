@@ -1,6 +1,7 @@
 """The port on a CUDA card: the kernels against their plain versions (the
 SpMM's pattern mode too), the loader's side-stream staging, short GCN and
-SAGE fits, a world-2 mesh fit on one card against grad_accum, a GAT and
+SAGE fits, staging from a page-locked plan cache (bitwise, by DMA), a
+world-2 mesh fit on one card against grad_accum, a GAT and
 a SAGE step against the CPU, the async tier with a
 resident and an out-of-core tenant against the synchronous engine, and
 the LM's prefill and serving through the flash-attention kernel.
@@ -208,6 +209,62 @@ def test_loader_stages_on_a_side_stream(dev):
     assert out == [64 * 32 * i for i in range(5)]
 
 
+def _same(staged, host):
+    """Staged tensors bitwise the host arrays: same dtypes, shapes, bytes."""
+    assert staged.keys() == host.keys()
+    for k, v in host.items():
+        got = staged[k].cpu().numpy()
+        assert got.dtype == v.dtype and got.shape == v.shape, k
+        assert got.tobytes() == np.ascontiguousarray(v).tobytes(), k
+
+
+def test_a_page_locked_cache_stages_bitwise_by_dma(dev, monkeypatch):
+    """The loader and the engine page-lock the plan's cache and stage it
+    by DMA: every staged batch bitwise its host arrays, every staged byte
+    counted as pinned, and the trace's copies ``Pinned -> Device``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.serve.gnn_engine as engine_mod
+    from repro_torch import obs
+    from repro_torch.data import PrefetchLoader
+    from repro_torch.device import page_locked
+    from repro_torch.models.gnn import GNNConfig, init_gnn
+    from repro_torch.serve import GNNInferenceEngine
+    ds, _train, plan = _tiny_plans()
+    order = np.asarray(plan.schedule)
+    obs.reset()
+    obs.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            staged = list(PrefetchLoader(plan, device=dev))
+            torch.cuda.synchronize()
+        assert all(page_locked(v) for v in plan.cache.fields.values())
+        for bi, got in zip(order, staged):
+            _same(got, plan.cache[int(bi)])
+        copies = [e.name for e in prof.events() if "Memcpy HtoD" in e.name]
+        assert copies and set(copies) == {"Memcpy HtoD (Pinned -> Device)"}
+        seen = []
+        inner = engine_mod.stage
+        monkeypatch.setattr(engine_mod, "stage", lambda host, d: seen.append(
+            (host, inner(host, d))) or seen[-1][1])
+        cfg = GNNConfig(in_dim=ds.feat_dim, hidden=32,
+                        out_dim=ds.num_classes, num_layers=2, backend="bcsr")
+        params = init_gnn(cfg, torch.Generator().manual_seed(0), device=dev)
+        eng = GNNInferenceEngine(plan, cfg, params, cache_batches=0)
+        eng.query(plan.routing.node_ids)
+        assert len(seen) == len(plan.cache)
+        for host, got in seen:
+            _same(got, host)
+        for name in ("loader.stage", "engine.stage"):
+            rows = [r["attrs"] for r in obs.records() if r["name"] == name]
+            assert len(rows) == len(plan.cache), name
+            assert all(0 < a["pinned_bytes"] == a["bytes"] for a in rows)
+    finally:
+        obs.disable()
+        obs.reset()
+
+
 def test_short_fit_launches_the_kernel_on_every_aggregation(dev):
     from repro_torch.core import IBMBConfig, IBMBPipeline
     from repro_torch.graph.datasets import get_dataset
@@ -396,9 +453,9 @@ def test_short_sage_fit_launches_the_pattern_kernel_on_every_aggregation(
                                            ("sage", "bcsr")])
 def test_gnn_kind_step_on_the_card_matches_cpu(dev, kind, backend):
     """One train step's loss and gradients, card against CPU, at dropout
-    0; GAT runs the segment path whatever the backend and launches no
-    SpMM."""
-    from repro_torch.device import stage
+    0, the batch staged from the page-locked cache; GAT runs the segment
+    path whatever the backend and launches no SpMM."""
+    from repro_torch.device import page_lock, page_locked, stage
     from repro_torch.models.gnn import GNNConfig
     from repro_torch.optim import tree_leaves, tree_map
     from repro_torch.train import GNNTrainer
@@ -408,6 +465,8 @@ def test_gnn_kind_step_on_the_card_matches_cpu(dev, kind, backend):
                     dropout=0.0)
     card = GNNTrainer(cfg, backend=backend)
     params = card.init_params()
+    page_lock(train.cache, dev)     # staged by DMA, as the loader stages it
+    assert page_locked(train.cache[0]["tile_vals"])
     build.reset_launches()
     got_l, got_g = card._steps_for(backend, 0)["grad"](
         params, stage(train.cache[0], dev), None)
