@@ -1,24 +1,29 @@
-"""The plain reference of the benchmark's GNNs: GCN and GraphSAGE as in the
-IBMB paper's App. B (LayerNorm, ReLU, inverted dropout on every hidden
-layer; masked cross-entropy; Adam), in float32 torch on a dense batch
-adjacency, with no kernel, cache or padding of the program's.
+"""The plain reference of the benchmark's GNNs, as in the IBMB paper's App.
+B (LayerNorm, ReLU, inverted dropout on every hidden layer; masked
+cross-entropy; Adam), in float32 torch, with no kernel, cache or padding
+of the program's.
+
+What differs from one model kind to another (its leaves, its initial
+weights, its layer over the batch's edges) lives in the kind's module,
+``kinds/<kind>.py``, found by the configuration's ``model.kind``; this
+module holds what every kind shares.
 
 A batch is its nodes (global ids, in the order the program lays them out
 when dropout masks have to line up) and the normalised graph's edges
-among them. GCN aggregates with the normalised weights; SAGE takes the
-mean over the same pattern (self loops included), as the program's
-batches carry it. ``tf32=True`` computes the same in TF32, the precision
-below the configuration's float32: the control that the comparison has
-to fail.
+among them (``BatchEdges``: self loops included). ``tf32=True`` computes
+the same in TF32, the precision below the configuration's float32: the
+control that the comparison has to fail.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Sequence
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from perfbench.harness.cell import kind_of
 from perfbench.harness.plan_ref import induced_edges
 
 LN_EPS = 1e-5
@@ -51,7 +56,7 @@ def layer_dims(model: dict) -> List[int]:
 
 def leaf_names(model: dict) -> List[str]:
     """Every parameter leaf as ``layers.<l>.<name>``."""
-    per = {"gcn": ("w", "b"), "sage": ("w_self", "w_nbr", "b")}[model["kind"]]
+    per = tuple(kind_of(model).LEAVES)
     out = []
     for l in range(model["num_layers"]):
         names = per + (("ln_scale", "ln_bias")
@@ -65,60 +70,68 @@ def flatten(params: Dict) -> Dict[str, torch.Tensor]:
             for k, v in layer.items()}
 
 
+def glorot(gen: torch.Generator, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Glorot-uniform from the CPU generator ``gen``, as the program draws
+    it: the limit from the first and the last of ``shape``."""
+    lim = float(np.sqrt(6.0 / (shape[0] + shape[-1])))
+    return torch.empty(shape).uniform_(-lim, lim, generator=gen)
+
+
 def trainer_init(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     """The initial parameters a trainer seeded with ``seed`` starts from:
-    Glorot-uniform weights drawn in layer order from a CPU generator
-    seeded with ``derive_seed(seed, 0)``, zero biases, unit LayerNorm."""
+    each layer's leaves as its kind draws them (``init_layer``), in layer
+    order from one CPU generator seeded with ``derive_seed(seed, 0)``, and
+    unit LayerNorm on the hidden layers."""
     gen = torch.Generator().manual_seed(derive_seed(seed, 0))
-    dims = layer_dims(model)
+    kind, dims, L = kind_of(model), layer_dims(model), model["num_layers"]
     out = {}
-    for l in range(model["num_layers"]):
-        d_in, d_out = dims[l], dims[l + 1]
-        lim = float(np.sqrt(6.0 / (d_in + d_out)))
-        ws = ("w",) if model["kind"] == "gcn" else ("w_self", "w_nbr")
-        for name in ws:
-            out[f"layers.{l}.{name}"] = torch.empty(
-                (d_in, d_out)).uniform_(-lim, lim, generator=gen)
-        out[f"layers.{l}.b"] = torch.zeros(d_out)
-        if l < model["num_layers"] - 1:
-            out[f"layers.{l}.ln_scale"] = torch.ones(d_out)
-            out[f"layers.{l}.ln_bias"] = torch.zeros(d_out)
+    for l in range(L):
+        layer = kind.init_layer(model, dims[l], dims[l + 1], l == L - 1, gen)
+        if l < L - 1:
+            layer["ln_scale"] = torch.ones(dims[l + 1])
+            layer["ln_bias"] = torch.zeros(dims[l + 1])
+        out.update((f"layers.{l}.{k}", v) for k, v in layer.items())
     return {k: v.to(device) for k, v in out.items()}
 
 
-def dense_adjacency(graph, nodes: np.ndarray, kind: str, device
-                    ) -> torch.Tensor:
-    """(n, n) adjacency among ``nodes`` in their given order: the
-    normalised weights for GCN, 1 per edge for SAGE."""
+@dataclasses.dataclass(frozen=True)
+class BatchEdges:
+    """The normalised graph's edges among a batch's nodes, in batch-local
+    ids (the nodes' given order), self loops included; ``n`` nodes."""
+    src: np.ndarray
+    dst: np.ndarray
+    weight: np.ndarray
+    n: int
+
+
+def batch_edges(graph, nodes: np.ndarray) -> BatchEdges:
     srt = np.argsort(nodes, kind="stable")
     src, dst, w = induced_edges(graph.n_indptr, graph.n_indices,
                                 graph.n_weights, nodes[srt])
-    src, dst = srt[src], srt[dst]
-    n = len(nodes)
-    a = torch.zeros((n, n), dtype=torch.float32, device=device)
-    vals = torch.from_numpy(w) if kind == "gcn" else torch.ones(len(w))
-    a.index_put_((torch.from_numpy(src).long().to(device),
-                  torch.from_numpy(dst).long().to(device)),
+    return BatchEdges(srt[src], srt[dst], w, len(nodes))
+
+
+def dense_adjacency(edges: BatchEdges, vals: torch.Tensor, device
+                    ) -> torch.Tensor:
+    """(n, n) float32 matrix with ``vals`` (one per edge) at the edges."""
+    a = torch.zeros((edges.n, edges.n), dtype=torch.float32, device=device)
+    a.index_put_((torch.from_numpy(edges.src).long().to(device),
+                  torch.from_numpy(edges.dst).long().to(device)),
                  vals.to(device), accumulate=True)
     return a
 
 
 def forward(model: dict, p: Dict[str, torch.Tensor], x: torch.Tensor,
-            a: torch.Tensor, masks: Optional[Sequence[torch.Tensor]] = None
+            g, masks: Optional[Sequence[torch.Tensor]] = None
             ) -> torch.Tensor:
-    """Logits of every node of the batch. ``masks``: one keep-mask per
+    """Logits of every node of the batch. ``g``: what the kind's
+    ``prepare`` made of the batch's edges. ``masks``: one keep-mask per
     hidden layer (inverted dropout at the configuration's rate)."""
-    kind, L = model["kind"], model["num_layers"]
-    deg = torch.clamp(a.sum(dim=1), min=1.0)[:, None] if kind == "sage" \
-        else None
+    kind, L = kind_of(model), model["num_layers"]
     h = x
     for l in range(L):
-        if kind == "gcn":
-            h = a @ (h @ p[f"layers.{l}.w"]) + p[f"layers.{l}.b"]
-        else:
-            h = (h @ p[f"layers.{l}.w_self"]
-                 + ((a @ h) / deg) @ p[f"layers.{l}.w_nbr"]
-                 + p[f"layers.{l}.b"])
+        h = kind.layer(model, {n: p[f"layers.{l}.{n}"] for n in kind.LEAVES},
+                       h, g, l == L - 1)
         if l < L - 1:
             mu = h.mean(dim=-1, keepdim=True)
             var = ((h - mu) ** 2).mean(dim=-1, keepdim=True)
@@ -177,22 +190,23 @@ def train_steps(model: dict, graph, batches, init: Dict[str, torch.Tensor],
     labels = torch.from_numpy(graph.labels)
     with precision(tf32):
         for (outputs, nodes), masks in zip(batches, step_masks):
-            a = dense_adjacency(graph, nodes, model["kind"], device).to(dtype)
+            g = kind_of(model).prepare(batch_edges(graph, nodes), device,
+                                       dtype)
             x = feats[torch.from_numpy(nodes).long()].to(device, dtype)
             pos = torch.from_numpy(np.searchsorted(
                 np.sort(nodes), outputs)).long()
             rows = torch.from_numpy(np.argsort(nodes, kind="stable"))[pos]
             y = labels[torch.from_numpy(outputs).long()].to(device)
             leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-            logits = forward(model, leaves, x, a, masks)
+            logits = forward(model, leaves, x, g, masks)
             loss = xent(logits[rows.to(device)], y)
             grads = torch.autograd.grad(loss, list(leaves.values()))
-            g = dict(zip(leaves, (t.detach() for t in grads)))
+            grads = dict(zip(leaves, (t.detach() for t in grads)))
             if first_grad is None:
-                first_grad = g
+                first_grad = grads
             losses.append(float(loss.detach()))
-            p = opt.step(p, g)
-            del a
+            p = opt.step(p, grads)
+            del g
     return losses, first_grad, p
 
 
@@ -202,9 +216,10 @@ def batch_logits(model: dict, graph, params: Dict[str, torch.Tensor],
                  tf32: bool = False) -> np.ndarray:
     """Logits of ``outputs`` from the forward over the batch ``nodes``."""
     with precision(tf32):
-        a = dense_adjacency(graph, nodes, model["kind"], device)
+        g = kind_of(model).prepare(batch_edges(graph, nodes), device,
+                                   torch.float32)
         x = torch.from_numpy(graph.features)[
             torch.from_numpy(nodes).long()].to(device)
-        h = forward(model, params, x, a)
+        h = forward(model, params, x, g)
         rows = np.searchsorted(nodes, outputs)
         return h[torch.from_numpy(rows).long().to(device)].cpu().numpy()

@@ -1,6 +1,7 @@
 """The yardstick's peaks and counts: one H100's published rates, the least
 time of a sparse-times-dense product (SpMM) call, and the model operations
-of a GNN step.
+of a GNN step. Which SpMM calls a batch makes, and its model operations,
+are its kind's (``kinds/<kind>.py``: ``spmm_calls``, ``forward_flops``).
 
 Peaks are NVIDIA's data sheet for the H100 SXM at its 700 W limit: 67
 TFLOP/s float32 outside the tensor cores (the port's GNN runs float32 with
@@ -21,6 +22,8 @@ import dataclasses
 from typing import List
 
 import numpy as np
+
+from perfbench.harness.cell import kind_of
 
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -56,45 +59,22 @@ def spmm_bound_s(t: SpmmNeeds, f: int, weighted: bool) -> float:
                spmm_flops(t, f) / PEAK_F32_FLOPS)
 
 
-def spmm_widths(model: dict) -> List[int]:
-    """The width of ``x`` at each layer's aggregation, in forward order:
-    GCN transforms first and aggregates its output; SAGE aggregates its
-    input."""
-    dims = ([model["in_dim"]] + [model["hidden"]] * (model["num_layers"] - 1)
-            + [model["out_dim"]])
-    if model["kind"] == "gcn":
-        return dims[1:]
-    return dims[:-1]
-
-
 def spmm_calls(model: dict, train: bool) -> List[int]:
-    """The width of every SpMM call of one batch: one per layer forward;
-    a training step's backward takes the same widths again, but for SAGE's
-    first layer, whose input (the features) wants no gradient."""
-    widths = spmm_widths(model)
-    if not train:
-        return widths
-    return widths + (widths if model["kind"] == "gcn" else widths[1:])
+    """The width of every SpMM call of one batch, forward then, in a
+    training step, backward."""
+    return [f for f, _ in kind_of(model).spmm_calls(model, train)]
 
 
 def batch_bound_s(t: SpmmNeeds, model: dict, train: bool) -> float:
-    """Least time of one batch's SpMM calls: GCN's product is weighted
-    (the normalised adjacency), SAGE's a pattern (a mean over neighbours)."""
-    weighted = model["kind"] == "gcn"
+    """Least time of one batch's SpMM calls, each weighted (a value per
+    nonzero entry) or a pattern as its kind makes it."""
     return sum(spmm_bound_s(t, f, weighted)
-               for f in spmm_calls(model, train))
+               for f, weighted in kind_of(model).spmm_calls(model, train))
 
 
 def model_flops(model: dict, real_nodes: int, nnz: int, train: bool) -> float:
-    """Operations one batch needs of the model: 2·n·F_in·F_out per dense
-    product over the real nodes (two a layer for SAGE), 2·nnz·F per
-    aggregation; three times that for a training step's forward and
-    backward."""
-    dims = ([model["in_dim"]] + [model["hidden"]] * (model["num_layers"] - 1)
-            + [model["out_dim"]])
-    per_dense = 2 if model["kind"] == "sage" else 1
-    total = 0.0
-    for f_in, f_out, f_agg in zip(dims[:-1], dims[1:], spmm_widths(model)):
-        total += per_dense * 2.0 * real_nodes * f_in * f_out
-        total += 2.0 * nnz * f_agg
-    return total * (3 if train else 1)
+    """Operations one batch needs of the model: its kind's forward over the
+    real nodes and the nonzero entries; three times that for a training
+    step's forward and backward."""
+    return kind_of(model).forward_flops(model, real_nodes, nnz) * (
+        3 if train else 1)

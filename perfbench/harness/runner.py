@@ -39,7 +39,7 @@ import torch
 
 from perfbench.harness import check, data, plan_ref, reference, roofline
 from perfbench.harness import trace as tracemod
-from perfbench.harness.cell import Cell, load_reader
+from perfbench.harness.cell import Cell, kind_of, load_reader
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
@@ -104,12 +104,14 @@ class Window:
 
 # ----------------------------------------------------------------- the port
 def gnn_config(model: dict):
+    """The program's ``GNNConfig``: the widths, depth, dropout, dtype and
+    backend every kind shares, and the kind's own keywords."""
     from repro_torch.models.gnn.models import GNNConfig
-    return GNNConfig(kind=model["kind"], in_dim=model["in_dim"],
-                     hidden=model["hidden"], out_dim=model["out_dim"],
-                     num_layers=model["num_layers"],
+    return GNNConfig(in_dim=model["in_dim"], hidden=model["hidden"],
+                     out_dim=model["out_dim"], num_layers=model["num_layers"],
                      dropout=model["dropout"], dtype=model["dtype"],
-                     backend=model["backend"])
+                     backend=model["backend"],
+                     **kind_of(model).program_kwargs(model))
 
 
 def as_dataset(name: str, g: data.Graph):
@@ -166,11 +168,12 @@ def window_costs(graph: data.Graph, batches, model: dict, train: bool,
 
 def make_params(model: dict, seed: int, device: torch.device) -> Dict:
     """Serving weights from the seed, in the program's layout, drawn on
-    the device: Glorot-uniform weights, small random biases and
-    LayerNorm affines."""
+    the device: each layer's as its kind draws them (``serve_layer``), and
+    small random LayerNorm affines on the hidden layers."""
     gen = torch.Generator(device=device).manual_seed(
         reference.derive_seed(seed, 7))
-    dims = reference.layer_dims(model)
+    kind, dims = kind_of(model), reference.layer_dims(model)
+    L = model["num_layers"]
 
     def uni(shape, lim):
         return (torch.rand(shape, generator=gen, device=device) * 2 - 1) * lim
@@ -179,15 +182,12 @@ def make_params(model: dict, seed: int, device: torch.device) -> Dict:
         return mean + std * torch.randn((n,), generator=gen, device=device)
 
     layers = []
-    for l in range(model["num_layers"]):
-        d_in, d_out = dims[l], dims[l + 1]
-        lim = math.sqrt(6.0 / (d_in + d_out))
-        names = ("w",) if model["kind"] == "gcn" else ("w_self", "w_nbr")
-        layer = {n: uni((d_in, d_out), lim) for n in names}
-        layer["b"] = nrm(d_out, 0.0, 0.1)
-        if l < model["num_layers"] - 1:
-            layer["ln_scale"] = nrm(d_out, 1.0, 0.1)
-            layer["ln_bias"] = nrm(d_out, 0.0, 0.1)
+    for l in range(L):
+        layer = kind.serve_layer(model, dims[l], dims[l + 1], l == L - 1,
+                                 uni, nrm)
+        if l < L - 1:
+            layer["ln_scale"] = nrm(dims[l + 1], 1.0, 0.1)
+            layer["ln_bias"] = nrm(dims[l + 1], 0.0, 0.1)
         layers.append(layer)
     return {"layers": layers}
 
@@ -261,7 +261,7 @@ def run_train(cell: Cell, graph: data.Graph, seed: int, seconds: float,
         epochs = max(1, int(round(seconds / warm)))
         log(f"warm epoch {warm:.3f}s; window of {epochs} epoch(s)")
         rec.armed = True
-        with _traced_schedule(gt, traced), Window(device, traced) as win:
+        with Window(device, traced) as win:
             fit(epochs)
     info = plan_info(plan)
     mem = _peak(device)
@@ -445,24 +445,6 @@ def _patched(module, name: str, value):
         setattr(module, name, old)
 
 
-@contextlib.contextmanager
-def _traced_schedule(gt, traced: bool):
-    """In a traced run, the trainer's per-epoch batch order under a span
-    of its own, so that the idle time it causes is named."""
-    if not traced:
-        yield
-        return
-    from torch.profiler import record_function
-    inner = gt.make_schedule
-
-    def make_schedule(*a, **k):
-        with record_function("tsp_order"):
-            return inner(*a, **k)
-
-    with _patched(gt, "make_schedule", make_schedule):
-        yield
-
-
 def _peak(device: torch.device) -> int:
     return int(torch.cuda.max_memory_allocated(device)) \
         if device.type == "cuda" else 0
@@ -536,6 +518,17 @@ def copy_probe(device: torch.device, nbytes: int = 1 << 30
 
 
 # ------------------------------------------------------------------ a run
+def mark_complete(ctx: Dict) -> bool:
+    """In a traced run's context, set ``trace_complete``: whether the
+    trace holds exactly as many SpMM kernels as the window made calls (0
+    for a kind that makes none). Returns whether it was set."""
+    tr = ctx.get("trace")
+    if tr is None or "spmm_calls" not in ctx:
+        return False
+    ctx["trace_complete"] = tr["spmm_calls"] == ctx["spmm_calls"]
+    return True
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
              device: torch.device, t_start: float) -> Dict:
     """One run of ``cell``: the result line's object, ``checks`` last.
@@ -556,8 +549,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
     probe = copy_probe(device)
     ctx = res["ctx"]
     tr = ctx.get("trace")
-    if tr is not None and "spmm_calls" in ctx:
-        ctx["trace_complete"] = tr["spmm_calls"] == ctx["spmm_calls"]
+    if mark_complete(ctx):
         log(f"spmm calls: {tr['spmm_calls']} in the trace, "
             f"{ctx['spmm_calls']} made"
             + ("" if ctx["trace_complete"] else

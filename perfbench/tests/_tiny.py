@@ -14,7 +14,12 @@ SEED = 2 ** 31 + 12345
 
 
 def tiny_cell(name, **mix):
-    cell = load_cell(name)
+    return tiny(load_cell(name), **mix)
+
+
+def tiny(cell, **mix):
+    """``cell`` at the tiny size, its mix's parameters replaced by
+    ``mix``."""
     c = copy.deepcopy(cell.config)
     c["dataset"].update(num_nodes=3000, avg_degree=8.0, num_classes=10,
                         feat_dim=32)

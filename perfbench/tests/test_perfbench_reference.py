@@ -1,14 +1,21 @@
 """The reference against the port at a tiny size: its graph, batches and
-epoch order are the port's; every cell's run is correct; a run whose timed
-path is broken underneath comes out not correct."""
+epoch order are the port's; every cell's run is correct, and so is a cell
+of a kind added as files alone; a run whose timed path is broken
+underneath comes out not correct."""
+import json
+import os
+import shutil
+import time
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.serve.gnn_engine as ge
 import repro_torch.train.gnn_trainer as gt
-from _tiny import run_tiny, tiny_cell
+from _tiny import run_tiny, tiny, tiny_cell
 from perfbench.harness import data, plan_ref, reference, runner
+from perfbench.harness.cell import PERFBENCH, load_cell
 
 
 @pytest.fixture(scope="module")
@@ -151,3 +158,39 @@ def test_the_tf32_control_fails_on_the_card():
     got = reference.batch_logits(inf.config["model"], g, flat, rb.nodes,
                                  rb.outputs, dev, tf32=True)
     assert check.logit_gap(got, want) > inf.limits["logit_gap"]
+
+
+def test_a_kind_joins_by_its_files_alone(tmp_path):
+    """A kind written as files into a checkout of its own (GCN's module
+    under another name, so it runs the program's ``gcn``), with its
+    configuration, mix, limits and cell, runs ``correct`` through the
+    harness as it stands."""
+    pb = tmp_path / "perfbench"
+    for d in ("kinds", "configs", "mixes", "limits"):
+        (pb / d).mkdir(parents=True)
+    shutil.copy(os.path.join(PERFBENCH, "kinds", "gcn.py"),
+                pb / "kinds" / "gcn_by_files.py")
+    with open(os.path.join(PERFBENCH, "configs", "gcn-arxiv.json")) as f:
+        conf = json.load(f)
+    conf["model"]["kind"] = "gcn_by_files"
+    (pb / "configs" / "twin.json").write_text(json.dumps(conf))
+    shutil.copy(os.path.join(PERFBENCH, "mixes", "train.json"),
+                pb / "mixes" / "train.json")
+    shutil.copy(os.path.join(PERFBENCH, "limits", "gcn-arxiv.train.json"),
+                pb / "limits" / "twin.train.json")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps({
+        "configs": [{"name": "twin", "file": "perfbench/configs/twin.json"}],
+        "workloads": [{"name": "twin.train", "config": "twin",
+                       "traffic": "train", "chips": 1}],
+        "end_to_end": [{"name": "train_nodes_per_s", "unit": "nodes/s"},
+                       {"name": "setup_s", "unit": "s"}],
+        "per_layer": []}))
+    cell = tiny(load_cell("twin.train", str(tmp_path)))
+    assert cell.config["model"]["kind"] == "gcn_by_files"
+    assert runner.gnn_config(cell.config["model"]).kind == "gcn"
+    out = runner.run_cell(cell, 2 ** 31 + 777, 1.0, False,
+                          torch.device("cpu"), time.perf_counter())
+    assert out["correct"], out["checks"]
+    for name, c in out["checks"].items():
+        assert c["value"] <= c["limit"] / 3 or c["limit"] == 0, name
+    assert set(out["metrics"]) == {"train_nodes_per_s", "setup_s"}

@@ -121,3 +121,44 @@ def test_window_costs_count_the_reference_s_batches():
     assert len(src) > len(b.nodes)      # self loops and edges
     assert one["model_flops"] > rf.model_flops(model, len(b.nodes),
                                                len(src), True)
+
+
+NO_SPMM_KIND = '''
+def spmm_calls(model, train):
+    return []
+
+
+def forward_flops(model, real_nodes, nnz):
+    return 2.0 * real_nodes * model["in_dim"] * model["out_dim"]
+'''
+
+
+def test_a_kind_without_spmm_calls_reads_a_complete_trace(tmp_path):
+    """A kind that aggregates without the SpMM expects no ``spmm_bcsr*``
+    kernel: a trace with none is complete, the SpMM's roofline reads
+    nothing, the model's share of the peak and the idle share read."""
+    from _tiny import tiny_cell
+    from perfbench.harness import data, plan_ref, runner
+    from perfbench.harness.cell import load_kind, load_reader
+    kinds = tmp_path / "perfbench" / "kinds"
+    kinds.mkdir(parents=True)
+    (kinds / "no_spmm_kind.py").write_text(NO_SPMM_KIND)
+    load_kind("no_spmm_kind", str(tmp_path))
+    cell = tiny_cell("gcn-arxiv.train")
+    model = dict(cell.config["model"], kind="no_spmm_kind")
+    g = data.load_graph(cell.config["dataset"])
+    batches = plan_ref.reference_batches(g, cell.config["ibmb"], "train",
+                                         False)[:3]
+    costs = runner.window_costs(g, batches, model, True, 2)
+    assert costs["spmm_calls"] == 0 and costs["spmm_bound_s"] == 0
+    assert costs["model_flops"] == 2 * 3 * sum(
+        2.0 * len(b.nodes) * 32 * 10 for b in batches)
+    trace = {"window_s": 10.0, "busy_s": 8.0, "htod_s": 6.0, "spmm_s": 0.0,
+             "spmm_calls": 0}
+    ctx = dict(costs, trace=trace, plan_timings={"plan": 1.0})
+    assert runner.mark_complete(ctx) and ctx["trace_complete"]
+    assert load_reader("spmm_roofline.train")(ctx) is None
+    assert load_reader("mfu.train")(ctx) == pytest.approx(
+        100.0 * costs["model_flops"] / (10.0 * rf.PEAK_F32_FLOPS))
+    assert load_reader("idle_share.train")(ctx) == pytest.approx(20.0)
+    assert not runner.mark_complete({"trace": None, "spmm_calls": 0})
