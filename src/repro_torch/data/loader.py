@@ -12,7 +12,9 @@ tensor, so the caching allocator never hands a staged buffer to another
 stream while the step still reads it. A resident ``BatchCache`` (or a
 Plan's) is page-locked in place when the loader is made
 (``device.page_lock``, once per cache), so its batches copy by DMA,
-``non_blocking``, and the step's own CUDA calls run beside the copy; the
+``non_blocking``, and the step's own CUDA calls run beside the copy; a
+batch whose tiles the lock checked has them built on the card from its
+edges instead (``device.copy_batch``), on the same side stream. The
 worker waits for its copies' event before it queues the batch, so the
 ``loader.stage`` span holds the copies' time. Other containers, and
 super-steps, copy from pageable memory.
@@ -38,8 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.device import (DeviceSpec, copy_batch, host_nbytes,
-                                page_lock, pinned_nbytes, resolve_device)
+from repro_torch.device import (DeviceSpec, copy_batch, page_lock,
+                                resolve_device)
 from repro_torch.faults import NO_FAULTS
 
 _STOP = object()
@@ -48,16 +50,18 @@ Staged = Tuple[Dict[str, torch.Tensor], Optional[torch.cuda.Event]]
 
 
 def stage_batch(batch: Mapping[str, np.ndarray], device: torch.device,
-                stream: Optional[torch.cuda.Stream] = None) -> Staged:
-    """Copy one batch's host arrays to ``device``; on CUDA, on ``stream``
-    (``device``'s current stream when None), returning the event that
-    marks the copies' end (None on the CPU)."""
+                stream: Optional[torch.cuda.Stream] = None,
+                span: Optional[obs.Span] = None) -> Staged:
+    """Copy one batch's host arrays to ``device``, counted on ``span``
+    (``copy_batch``); on CUDA, on ``stream`` (``device``'s current stream
+    when None), returning the event that marks the copies' end (None on
+    the CPU)."""
     if device.type != "cuda":
-        return copy_batch(batch, device), None
+        return copy_batch(batch, device, span), None
     if stream is None:
         stream = torch.cuda.current_stream(device)
     with torch.cuda.stream(stream):
-        out = copy_batch(batch, device)
+        out = copy_batch(batch, device, span)
         done = torch.cuda.Event()
         done.record(stream)
     return out, done
@@ -84,19 +88,21 @@ def consume(staged: Staged, device: torch.device) -> Dict[str, torch.Tensor]:
 
 def stage_superstep(stacked: Mapping[str, np.ndarray],
                     devices: Sequence[torch.device],
-                    streams: Optional[Mapping] = None
+                    streams: Optional[Mapping] = None,
+                    span: Optional[obs.Span] = None
                     ) -> List[Tuple[Staged, torch.device]]:
     """Stage one stacked super-step for members on ``devices``: one copy
     per field of the stacked arrays when every member shares one device
     (the members are then views of it), else one copy per member and field
-    onto the member's own device. ``streams`` maps a device to its side
-    stream (None: the current stream)."""
+    onto the member's own device, every copy counted on ``span``.
+    ``streams`` maps a device to its side stream (None: the current
+    stream)."""
     streams = streams or {}
     if len(set(devices)) == 1:
         dev = devices[0]
-        return [(stage_batch(stacked, dev, streams.get(dev)), dev)]
+        return [(stage_batch(stacked, dev, streams.get(dev), span), dev)]
     return [(stage_batch({k: v[j] for k, v in stacked.items()}, dev,
-                         streams.get(dev)), dev)
+                         streams.get(dev), span), dev)
             for j, dev in enumerate(devices)]
 
 
@@ -207,17 +213,13 @@ class PrefetchLoader:
             if not self.group:
                 with obs.span("loader.stage", parent=parent,
                               batch=int(self.order[pos])) as s:
-                    s.add(bytes=host_nbytes(item),
-                          pinned_bytes=pinned_nbytes(item, self.device))
                     staged = stage_batch(item, self.device,
-                                         streams.get(self.device))
+                                         streams.get(self.device), s)
                     _wait([staged])
                     return staged
             stacked, w = item
             with obs.span("loader.stage", parent=parent, superstep=pos) as s:
-                s.add(bytes=host_nbytes(stacked),
-                      pinned_bytes=pinned_nbytes(stacked, devices[0]))
-                parts = stage_superstep(stacked, devices, streams)
+                parts = stage_superstep(stacked, devices, streams, s)
                 _wait([staged for staged, _dev in parts])
                 return parts, w
 

@@ -6,6 +6,12 @@ every batch's slice of it copies by DMA, ``non_blocking``, without a
 second, pinned copy of the plan on the host. Everything else (a memmap,
 the out-of-core ``LazyBatchCache``, a stacked super-step, the CPU, a
 registration the driver refuses) copies from pageable memory as before.
+
+Once its fields are locked, each batch's dense ``tile_vals`` are checked
+against the tiles ``build_tiles`` makes from the batch's edges
+(``stage.tile_check``); a batch that matches bit for bit has its tiles made
+on the card when it is staged, from the few MB of edges it copies anyway,
+instead of copying the (R, K, B, B) tiles, which are nearly all zeros.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import mmap
 import threading
 import warnings
 import weakref
-from typing import Dict, List, Mapping, Tuple, Union
+from typing import Dict, FrozenSet, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +42,14 @@ _lock = threading.RLock()
 _ranges: Dict[int, List[int]] = {}
 _spans: Tuple[Tuple[int, int], ...] = ()
 _locked: "weakref.WeakSet" = weakref.WeakSet()      # caches seen
+
+# Batches whose tiles ``page_lock`` found equal, bit for bit, to the ones
+# built from their edges: per batch the identity (address, shape, strides,
+# type) of each of its ``TILE_SOURCES`` views -> the number of caches
+# holding it. ``_checked`` is the same keys as an immutable set, replaced
+# under the lock and read without it on the staging path, as ``_spans``.
+_check_counts: Dict[tuple, int] = {}
+_checked: FrozenSet[tuple] = frozenset()
 
 
 def resolve_device(device: DeviceSpec = None) -> torch.device:
@@ -82,36 +96,86 @@ def to_tensor(a, device: DeviceSpec = None) -> torch.Tensor:
     return t.to(dev, non_blocking=_dma(a, dev))
 
 
-def host_nbytes(batch: Mapping[str, np.ndarray]) -> int:
-    """The bytes ``stage`` copies for ``batch``: its host arrays' sizes."""
-    return sum(np.asarray(v).nbytes for v in batch.values())
+def _tiles():
+    """``kernels.spmm.ops``, which owns the tiles' layout (``TILE_SOURCES``)
+    and their builder (``batch_tiles``); imported on use, as it imports
+    this module."""
+    from repro_torch.kernels.spmm import ops
+    return ops
 
 
-def pinned_nbytes(batch: Mapping[str, np.ndarray],
-                  device: torch.device) -> int:
-    """The bytes of ``batch`` that staging to ``device`` copies from
-    page-locked memory: 0 off a CUDA device."""
-    return sum(v.nbytes for v in batch.values() if _dma(v, device))
+def _view_key(a: np.ndarray) -> tuple:
+    ai = a.__array_interface__
+    return ai["data"][0], ai["shape"], ai["strides"], ai["typestr"]
 
 
-def copy_batch(batch: Mapping[str, np.ndarray],
-               device: DeviceSpec = None) -> Dict[str, torch.Tensor]:
+def _tile_key(batch: Mapping[str, np.ndarray]) -> Optional[tuple]:
+    """The identity of ``batch``'s ``TILE_SOURCES`` views, or None where it
+    lacks one or one is not a host array."""
+    views = [batch.get(k) for k in _tiles().TILE_SOURCES]
+    if not all(isinstance(v, np.ndarray) for v in views):
+        return None
+    return tuple(_view_key(v) for v in views)
+
+
+def _staging(batch: Mapping[str, np.ndarray], dev: torch.device
+             ) -> Tuple[List[str], bool]:
+    """How ``batch`` stages to ``dev``: the fields it copies, largest first,
+    and whether it builds ``tile_vals`` on the card instead of copying
+    them, as it does only for the checked views of a page-locked cache
+    staged to a CUDA device."""
+    checked = _checked
+    build = bool(checked) and dev.type == "cuda" and \
+        _tile_key(batch) in checked
+    copied = sorted((k for k in batch if not (build and k == "tile_vals")),
+                    key=lambda k: -np.asarray(batch[k]).nbytes)
+    return copied, build
+
+
+def _counts(batch: Mapping[str, np.ndarray], dev: torch.device,
+            copied: List[str], build: bool) -> Dict[str, int]:
+    return {"bytes": sum(np.asarray(batch[k]).nbytes for k in copied),
+            "pinned_bytes": sum(batch[k].nbytes for k in copied
+                                if _dma(batch[k], dev)),
+            "built_bytes": batch["tile_vals"].nbytes if build else 0}
+
+
+def stage_nbytes(batch: Mapping[str, np.ndarray],
+                 device: torch.device) -> Dict[str, int]:
+    """The counts ``copy_batch`` puts on its span for staging ``batch`` to
+    ``device``: ``bytes`` copied, ``pinned_bytes`` of them copied from
+    page-locked memory (0 off a CUDA device), and ``built_bytes``, the
+    ``tile_vals`` made on the card instead of copied (0 where they are
+    copied). A batch's host arrays are ``bytes`` + ``built_bytes``."""
+    return _counts(batch, device, *_staging(batch, device))
+
+
+def copy_batch(batch: Mapping[str, np.ndarray], device: DeviceSpec = None,
+               span: Optional[obs.Span] = None) -> Dict[str, torch.Tensor]:
     """One copy per field of ``batch`` to ``device``, keyed in ``batch``'s
     order. The largest copy is issued first: from page-locked memory it
     runs while the host issues the rest, which queue behind it on the
-    stream, so the copy engine is not left idle between small fields."""
+    stream, so the copy engine is not left idle between small fields.
+    Checked tiles (``page_lock``) are not copied but built on the card
+    from the staged edges after the copies, on the current stream. Adds
+    ``stage_nbytes``' counts to ``span`` where one is given."""
     dev = resolve_device(device)
-    first = sorted(batch, key=lambda k: -np.asarray(batch[k]).nbytes)
-    out = {k: to_tensor(batch[k], dev) for k in first}
+    copied, build = _staging(batch, dev)
+    out = {k: to_tensor(batch[k], dev) for k in copied}
+    if build:
+        out["tile_vals"] = _tiles().batch_tiles(out, batch)
+    if span is not None:
+        span.add(**_counts(batch, dev, copied, build))
     return {k: out[k] for k in batch}
 
 
-def stage(batch: Mapping[str, np.ndarray],
-          device: DeviceSpec = None) -> Dict[str, torch.Tensor]:
-    """Copy one batch's host arrays to ``device`` (``copy_batch``).
-    Returns once the copies are done, page-locked ones included."""
+def stage(batch: Mapping[str, np.ndarray], device: DeviceSpec = None,
+          span: Optional[obs.Span] = None) -> Dict[str, torch.Tensor]:
+    """Copy one batch's host arrays to ``device`` (``copy_batch``, which
+    counts them on ``span``). Returns once the copies are done,
+    page-locked ones included."""
     dev = resolve_device(device)
-    out = copy_batch(batch, dev)
+    out = copy_batch(batch, dev, span)
     if any(_dma(np.asarray(v), dev) for v in batch.values()):
         torch.cuda.current_stream(dev).synchronize()
     return out
@@ -147,13 +211,24 @@ def _clear_error(cudart) -> None:
         get()
 
 
-def _release(held: List[Tuple[int, int]], arrays) -> None:
-    """Drop a released cache's hold on its ranges; unregister a range no
-    cache holds. ``arrays``, held by the finalizer until this returns,
-    keeps the memory alive until then."""
+def _publish_checked() -> None:
+    global _checked
+    _checked = frozenset(_check_counts)
+
+
+def _release(held: List[Tuple[int, int]], arrays, keys: List[tuple]
+             ) -> None:
+    """Drop a released cache's hold on its ranges and checked batches;
+    unregister a range no cache holds. ``arrays``, held by the finalizer
+    until this returns, keeps the memory alive until then."""
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()     # no copy may read a range it unpins
     with _lock:
+        for key in keys:
+            _check_counts[key] -= 1
+            if _check_counts[key] == 0:
+                del _check_counts[key]
+        _publish_checked()
         free = []
         for p, n in held:
             entry = _ranges.get(p)
@@ -177,8 +252,9 @@ def page_lock(cache, device) -> int:
     once per cache; later calls return 0. The fields stay registered until
     the cache is released. Anything else (another container, a CPU
     device, a memmap or non-contiguous field, a range already registered
-    in part, a field the driver refuses) is left pageable. Returns the
-    bytes registered by this call."""
+    in part, a field whose registration is refused) is left pageable.
+    Then checks the cache's tiles (``_check_tiles``). Returns the bytes
+    registered by this call."""
     from repro_torch.core.batches import BatchCache
     if not isinstance(cache, BatchCache) or \
             not isinstance(device, torch.device) or device.type != "cuda":
@@ -209,7 +285,68 @@ def page_lock(cache, device) -> int:
                 held.append((p, n))
                 arrays.append(a)
                 _publish()
-        fin = weakref.finalize(cache, _release, held, arrays)
+        keys: List[tuple] = []
+        fin = weakref.finalize(cache, _release, held, arrays, keys)
         fin.atexit = False           # the process's exit unpins it anyway
         _locked.add(cache)
+        _check_tiles(cache, device, keys)
         return (s.counts or {}).get("bytes", 0)
+
+
+def _check_tiles(cache, device: torch.device, keys: List[tuple]) -> None:
+    """Find the batches of a page-locked ``cache`` whose tiles staging may
+    build on ``device`` instead of copying, under the span
+    ``stage.tile_check`` (counts ``checked``, ``mismatched`` and
+    ``skipped`` batches, ``bytes`` of tiles copied to compare). Each
+    batch's ``tile_vals`` are copied by DMA and compared, as int32 so NaN
+    and ``-0.0`` count, with the tiles built from its edges; the keys of
+    those that match go to ``keys`` and the checked set, and the rest keep
+    the copy. Once the card has no room to compare, the batches not yet
+    checked are skipped, with a warning, and keep the copy too. The
+    ``TILE_SOURCES`` fields are made read-only first, so a check holds
+    for the cache's life. Holds ``_lock``."""
+    sources = _tiles().TILE_SOURCES
+    f = cache.fields
+    if not all(k in f for k in sources) or \
+            f["tile_vals"].dtype != np.float32 or \
+            not page_locked(f["tile_vals"]):
+        return
+    for k in sources:
+        f[k].setflags(write=False)
+    with obs.span("stage.tile_check") as s:
+        skipped = 0
+        for i in range(len(cache)):
+            batch = {k: f[k][i] for k in sources}
+            key = _tile_key(batch)
+            if key not in _check_counts:
+                if skipped:
+                    skipped += 1
+                    continue
+                try:
+                    same = _tiles_match(batch, device)
+                except torch.cuda.OutOfMemoryError:
+                    skipped = 1
+                    continue
+                s.add(checked=1, mismatched=int(not same),
+                      bytes=batch["tile_vals"].nbytes)
+                if not same:
+                    continue
+            _check_counts[key] = _check_counts.get(key, 0) + 1
+            keys.append(key)
+        s.add(skipped=skipped)
+        _publish_checked()
+    if skipped:
+        warnings.warn(
+            f"stage.tile_check: out of card memory, {skipped} of "
+            f"{len(cache)} batches were not checked and copy their tiles",
+            RuntimeWarning)
+
+
+def _tiles_match(batch: Mapping[str, np.ndarray],
+                 device: torch.device) -> bool:
+    """Whether the tiles built on ``device`` from ``batch``'s edges are its
+    ``tile_vals``, bit for bit."""
+    staged = {k: to_tensor(v, device) for k, v in batch.items()}
+    built = _tiles().batch_tiles(staged, batch)
+    return torch.equal(built.view(torch.int32),
+                       staged["tile_vals"].view(torch.int32))

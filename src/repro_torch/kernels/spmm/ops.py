@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,6 +145,75 @@ def csr_to_bcsr(indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray,
               data[order])
     out = BCSR(tile_cols, tile_vals, rpad, cpad)
     return out if pad_k is None else out.with_pad_k(pad_k)
+
+
+def build_tiles(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                edge_weight: torch.Tensor, tile_cols: torch.Tensor,
+                block: int) -> torch.Tensor:
+    """The float32 ``(R, K, B, B)`` tiles of a batch's COO edges on the
+    slots of its ``tile_cols``, made where the tensors lie (on a card, from
+    edges a few MB in size, instead of copying the dense tiles), with no
+    wait on the device.
+
+    For the ``tile_cols`` that ``csr_to_bcsr`` gave for the same edges (as
+    a batch's CSR, rows ``edge_src``, columns ``edge_dst``) it gives that
+    converter's ``tile_vals``, bit for bit: entries with weight 0 (padded
+    edges, ``-0.0``) are dropped; a row tile's real slots are the leading
+    run of strictly ascending columns, the rest are padding (column 0, all
+    zeros, ``BCSR.with_pad_k``); each entry is added into zeros at
+    ``(src // B, slot, src % B, dst % B)``. An entry outside the ``R * B``
+    nodes or on a column tile with no real slot is dropped, so tiles that
+    do not belong to these edges come out different, never out of bounds.
+    """
+    r, k = tile_cols.shape
+    dev = tile_cols.device
+    cols = tile_cols.long()
+    asc = torch.ones((r, k), dtype=torch.long, device=dev)
+    asc[:, 1:] = cols[:, 1:] > cols[:, :-1]
+    real = asc.cumprod(dim=1).bool() & (cols >= 0) & (cols < r)
+    # slot of each (row tile, column tile) pair, -1 where it has none;
+    # each padded slot writes an entry of its own past the pairs, never read
+    slot_of = torch.full((r * r + r * k,), -1, dtype=torch.long, device=dev)
+    rows = torch.arange(r, device=dev).unsqueeze(1)
+    slots = torch.arange(k, device=dev).expand(r, k)
+    slot_of[torch.where(real, rows * r + cols, r * r + rows * k + slots)] = \
+        slots
+
+    n = r * block
+    src, dst = edge_src.long(), edge_dst.long()
+    keep = (edge_weight != 0) & (src >= 0) & (src < n) & (dst >= 0) \
+        & (dst < n)
+    src, dst = torch.where(keep, src, 0), torch.where(keep, dst, 0)
+    slot = slot_of[(src // block) * r + dst // block]
+    keep &= slot >= 0
+    flat = (((src // block) * k + slot) * block + src % block) * block \
+        + dst % block
+    # each dropped entry lands in an element of its own past the tiles: the
+    # scatter adds the entries of one element in turn, so a shared one
+    # would take every padded edge of the batch one by one (2.7 ms a test
+    # batch of the arxiv-size plan on an H100, against 0.1 ms)
+    size = r * k * block * block
+    past = size + torch.arange(len(flat), device=dev)
+    out = torch.zeros(size + len(flat), dtype=torch.float32, device=dev)
+    out.index_put_((torch.where(keep, flat, past),),
+                   edge_weight.to(torch.float32), accumulate=True)
+    return out[:size].view(r, k, block, block)
+
+
+# The fields of a batch ``batch_tiles`` reads, ``tile_vals`` first: the
+# tiles it makes from the other four.
+TILE_SOURCES = ("tile_vals", "tile_cols", "edge_src", "edge_dst",
+                "edge_weight")
+
+
+def batch_tiles(staged: Mapping[str, torch.Tensor],
+                host: Mapping[str, np.ndarray]) -> torch.Tensor:
+    """``build_tiles`` of a batch's staged edge and ``tile_cols`` fields,
+    at the block of its host ``tile_vals``: its ``tile_vals``, where they
+    belong to its edges."""
+    return build_tiles(staged["edge_src"], staged["edge_dst"],
+                       staged["edge_weight"], staged["tile_cols"],
+                       host["tile_vals"].shape[-1])
 
 
 def _as_tensor(a, device: DeviceSpec) -> torch.Tensor:

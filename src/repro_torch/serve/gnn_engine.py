@@ -12,7 +12,8 @@ ids, answered from a ``Plan`` with no preprocessing on the request path:
    follows the plan's stored autotuner decisions (DESIGN.md §14). Each
    missing batch's host arrays are staged to the device once per forward
    (from the plan's cache, page-locked in place on a CUDA device:
-   ``device.page_lock``, at construction and on every ``swap``);
+   ``device.page_lock``, at construction and on every ``swap``; a batch
+   whose tiles it checked has them built on the card from its edges);
    with the bcsr backend on a CUDA device the GCN's and SAGE's aggregation
    is the hand-written block-CSR SpMM kernel (GAT runs the segment path).
 4. **Gather** — per-node logit rows are sliced out of the batch output,
@@ -55,8 +56,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.plan import Plan, check_routing
-from repro_torch.device import (DeviceSpec, host_nbytes, page_lock,
-                                pinned_nbytes, resolve_device, stage)
+from repro_torch.device import (DeviceSpec, page_lock, resolve_device,
+                                stage)
 from repro_torch.models.gnn import ops as gnn_ops
 from repro_torch.models.gnn import policy as gnn_policy
 from repro_torch.models.gnn.models import GNNConfig, gnn_apply, output_logits
@@ -299,9 +300,7 @@ class GNNInferenceEngine:
                 fwd = self._forward_for(*self._decisions[bi])
                 host = self.plan.cache[bi]
                 with obs.span("engine.stage", batch=bi) as s:
-                    s.add(bytes=host_nbytes(host),
-                          pinned_bytes=pinned_nbytes(host, self.device))
-                    batch = stage(host, self.device)
+                    batch = stage(host, self.device, s)
                 with obs.span("engine.forward", batch=bi):
                     out = fwd(self.params, batch)
                 with obs.span("engine.fetch", batch=bi):

@@ -246,8 +246,8 @@ def test_a_page_locked_cache_stages_bitwise_by_dma(dev, monkeypatch):
         assert copies and set(copies) == {"Memcpy HtoD (Pinned -> Device)"}
         seen = []
         inner = engine_mod.stage
-        monkeypatch.setattr(engine_mod, "stage", lambda host, d: seen.append(
-            (host, inner(host, d))) or seen[-1][1])
+        monkeypatch.setattr(engine_mod, "stage", lambda host, d, span: (
+            seen.append((host, inner(host, d, span))) or seen[-1][1]))
         cfg = GNNConfig(in_dim=ds.feat_dim, hidden=32,
                         out_dim=ds.num_classes, num_layers=2, backend="bcsr")
         params = init_gnn(cfg, torch.Generator().manual_seed(0), device=dev)
